@@ -1,0 +1,582 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving.
+
+Usage, from the root of a checkout, on a machine with one CUDA card of
+capability >= 9.0 (Hopper):
+
+    python3 chip_smoke.py
+
+Phases (any failed check raises and the script exits non-zero):
+
+1. environment: torch / CUDA versions, the card, its power limit;
+2. build: the four CUDA kernels (nvcc) and the host SHA1 module (g++);
+3. kernel parity: each kernel against its plain PyTorch version on the
+   same CUDA tensors, exact, at the main path's shapes and ragged edges,
+   timed with CUDA events;
+4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
+   docs x 200 SHA1 tokens), checked against the plain version and a host
+   numpy evaluation of the reference formula;
+5. index: a 1,048,576-row ``TorchMinHashLSH`` (the signatures plus
+   planted near-duplicates);
+6. serving: 1,024-query ``top_k`` (scan, bands, auto; k = 10 and 256),
+   threshold ``query_batch`` (bands, scan, and a scan that escalates past
+   128 matches), then 1,000 removals and the queries again;
+7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one;
+8. launch counts of the four kernels during phases 4-6 (each must be > 0).
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. Without a usable card, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+NUM_PERM = 128
+TOKENS_PER_DOC = 200
+SIG_DOCS = 16384
+N_INDEX = 1 << 20
+N_QUERIES = 1024
+TOP_K = 10
+BIG_K = 256
+N_REMOVE = 1000
+N_NEAR = 300  # near-copies of one doc: a threshold scan with > 128 matches
+PARITY_ROWS = 65536
+PARITY_QUERIES = 256
+
+KERNELS = [
+    {
+        "name": "minhash_sign",
+        "module": "minhash_sign",
+        "source": "datasketch_tpu_torch/csrc/minhash_sign.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:95",
+    },
+    {
+        "name": "topk_scan",
+        "module": "lsh_scan",
+        "source": "datasketch_tpu_torch/csrc/lsh_scan.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:642",
+    },
+    {
+        "name": "rerank",
+        "module": "rerank",
+        "source": "datasketch_tpu_torch/csrc/rerank.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:487",
+    },
+    {
+        "name": "score_matrix",
+        "module": "score",
+        "source": "datasketch_tpu_torch/csrc/score.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:201",
+    },
+]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+class Smoke:
+    """Runs the phases on ``device`` and keeps the per-kernel record.
+
+    The main-path phases (signatures, index, serving, facade parity) also
+    run with ``device="cpu"`` at small sizes, on the kernels' plain
+    versions: ``tests/test_torch_smoke_phases.py`` rehearses them there.
+    """
+
+    def __init__(self, torch, device: str = "cuda"):
+        self.torch = torch
+        self.device = torch.device(device)
+        self.record = {k["name"]: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+                       for k in KERNELS}
+
+    # ----------------------------------------------------------- helpers
+
+    def kmod(self, name: str):
+        import importlib
+
+        spec = next(k for k in KERNELS if k["name"] == name)
+        return importlib.import_module("datasketch_tpu_torch.kernels." + spec["module"])
+
+    def time_ms(self, fn, iters: int = 5, warmup: int = 1) -> float:
+        from datasketch_tpu_torch.utils.profiling import cuda_time_ms
+
+        return cuda_time_ms(fn, warmup=warmup, iters=iters)
+
+    def sync(self) -> None:
+        from datasketch_tpu_torch.utils.profiling import device_sync
+
+        device_sync(self.device)
+
+    def compare(self, name: str, case: str, got, want) -> None:
+        """Exact equality of kernel and plain outputs (tuples allowed)."""
+        torch = self.torch
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  "%s/%s: shape or dtype differs: %s %s vs %s %s"
+                  % (name, case, tuple(g.shape), g.dtype, tuple(w.shape), w.dtype))
+            if g.numel():
+                if g.dtype == torch.float32:
+                    err = float((g - w).abs().max())
+                else:
+                    err = float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                rec = self.record[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            check(torch.equal(g, w), "%s/%s: kernel and plain version differ" % (name, case))
+        log("  %-13s %-34s exact" % (name, case))
+
+    def rand_sigs(self, n: int, p: int, seed: int, values: int = 0):
+        """int32[n, p] on the device from a seeded generator: full 32-bit
+        patterns, or 0..values-1 (many equal slots: planted ties)."""
+        torch = self.torch
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        if values:
+            return torch.randint(0, values, (n, p), generator=g, device=self.device,
+                                 dtype=torch.int32)
+        return torch.randint(-(1 << 31), 1 << 31, (n, p), generator=g,
+                             device=self.device, dtype=torch.int32)
+
+    def near_copies(self, rows, keep: float, seed: int):
+        """Rows with a ``1 - keep`` share of slots replaced at random."""
+        torch = self.torch
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        noise = torch.randint(-(1 << 31), 1 << 31, rows.shape, generator=g,
+                              device=self.device, dtype=torch.int32)
+        mask = torch.rand(rows.shape, generator=g, device=self.device) < keep
+        return torch.where(mask, rows, noise)
+
+    # ------------------------------------------------------------ phases
+
+    def phase_build(self) -> None:
+        from datasketch_tpu_torch import native
+        from datasketch_tpu_torch.kernels import build
+
+        t0 = time.perf_counter()
+        build.library()
+        t_nvcc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.load()
+        t_gxx = time.perf_counter() - t0
+        log("[build] kernels (nvcc) %.2f s, host SHA1 (g++) %.2f s" % (t_nvcc, t_gxx))
+        for line in build.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+
+    def phase_kernels(self) -> None:
+        """Kernel against plain version on the same tensors."""
+        torch = self.torch
+        from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
+
+        dev = self.device
+        a, b = perm_tensors(1, NUM_PERM, dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        # kernel 1: signatures of flat ragged tokens
+        k1 = self.kmod("minhash_sign")
+        n_docs = 8192
+        flat = torch.randint(-(1 << 31), 1 << 31, (n_docs * TOKENS_PER_DOC,), generator=g,
+                             device=dev, dtype=torch.int32)
+        lengths = torch.full((n_docs,), TOKENS_PER_DOC, dtype=torch.int32, device=dev)
+        starts = torch.arange(n_docs, device=dev, dtype=torch.int64) * TOKENS_PER_DOC
+        args = (flat, starts, lengths, a, b)
+        self.compare("minhash_sign", "%d docs x %d tokens" % (n_docs, TOKENS_PER_DOC),
+                     k1.minhash_sign(*args), k1.minhash_sign_plain(*args))
+        self.record["minhash_sign"]["ms"] = self.time_ms(lambda: k1.minhash_sign(*args))
+        self.record["minhash_sign"]["plain_ms"] = self.time_ms(
+            lambda: k1.minhash_sign_plain(*args), iters=1)
+        lens = torch.randint(0, 300, (1001,), generator=g, device=dev, dtype=torch.int32)
+        lens[:10] = 0
+        lens[500] = 2500  # longer than the kernel's token tile
+        rstarts = torch.zeros(1001, dtype=torch.int64, device=dev)
+        rstarts[1:] = torch.cumsum(lens[:-1], 0)
+        rflat = torch.randint(0, 70000, (int(lens.sum()),), generator=g, device=dev,
+                              dtype=torch.int32)
+        for mix in (False, True):
+            args = (rflat, rstarts, lens, a, b, mix)
+            self.compare("minhash_sign", "ragged 1001 docs, empty, mix=%s" % mix,
+                         k1.minhash_sign(*args), k1.minhash_sign_plain(*args))
+
+        # kernel 2: fused top-k scan
+        k2 = self.kmod("topk_scan")
+        n, nq = N_INDEX, N_QUERIES
+        db = self.rand_sigs(n, NUM_PERM, 1)
+        qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
+        q = self.near_copies(db[qidx], 0.7, 2)
+        args = (db, q, TOP_K, n)
+        self.compare("topk_scan", "N=%d Q=%d k=%d" % (n, nq, TOP_K),
+                     k2.topk_scan(*args), k2.topk_scan_plain(*args, None, 0.0))
+        self.record["topk_scan"]["ms"] = self.time_ms(lambda: k2.topk_scan(*args))
+        self.record["topk_scan"]["plain_ms"] = self.time_ms(
+            lambda: k2.topk_scan_plain(*args, None, 0.0), iters=1, warmup=0)
+        n2, nq2 = 100003, 77
+        ties = self.rand_sigs(n2, NUM_PERM, 3, values=4)
+        halves = self.rand_sigs(n2, NUM_PERM, 4, values=2)
+        q_ties = self.rand_sigs(nq2, NUM_PERM, 6, values=4)
+        q_halves = self.rand_sigs(nq2, NUM_PERM, 7, values=2)
+        alive = torch.rand(n2, generator=g, device=dev) > 0.1
+        cases = [
+            ("ties k=1", ties, q_ties, 1, n2, None, 0.0),
+            ("ties k=128", ties, q_ties, 128, n2, None, 0.0),
+            ("ties k=37 alive n_valid", ties, q_ties, 37, n2 - 1000, alive, 0.0),
+            ("cutoff 0.5 k=16 alive", halves, q_halves, 16, n2, alive, 0.5),
+        ]
+        for case, d, qq, k, nv, al, cut in cases:
+            self.compare("topk_scan", case, k2.topk_scan(d, qq, k, nv, al, cut),
+                         k2.topk_scan_plain(d, qq, k, nv, al, cut))
+
+        # kernel 3: rerank with the candidate gather fused in
+        k3 = self.kmod("rerank")
+        cand = torch.randint(0, n, (nq, 3200), generator=g, device=dev, dtype=torch.int32)
+        cand[:, : 3200 // 3] = qidx[:, None].to(torch.int32)  # the planted source
+        cand = torch.where(torch.rand(cand.shape, generator=g, device=dev) < 0.3, -1, cand)
+        self.compare("rerank", "Q=%d C=3200 over N=%d" % (nq, n),
+                     k3.rerank_scores(db, q, cand), k3.rerank_scores_plain(db, q, cand))
+        self.record["rerank"]["ms"] = self.time_ms(lambda: k3.rerank_scores(db, q, cand))
+        self.record["rerank"]["plain_ms"] = self.time_ms(
+            lambda: k3.rerank_scores_plain(db, q, cand), iters=1)
+        rc = torch.randint(-1, n2, (5, 70), generator=g, device=dev, dtype=torch.int32)
+        rc[2] = -1
+        self.compare("rerank", "Q=5 C=70 ties, an all -1 row",
+                     k3.rerank_scores(ties, q_ties[:5], rc),
+                     k3.rerank_scores_plain(ties, q_ties[:5], rc))
+
+        # kernel 4: score matrix, and the k > 128 scan built on it
+        k4 = self.kmod("score_matrix")
+        tile = db[: min(n, 8192)]
+        self.compare("score_matrix", "Q=%d T=%d" % (nq, tile.shape[0]),
+                     k4.score_matrix(q, tile), k4.score_matrix_plain(q, tile))
+        self.record["score_matrix"]["ms"] = self.time_ms(lambda: k4.score_matrix(q, tile))
+        self.record["score_matrix"]["plain_ms"] = self.time_ms(
+            lambda: k4.score_matrix_plain(q, tile), iters=1)
+        self.compare("score_matrix", "Q=13 T=1000 ties",
+                     k4.score_matrix(q_ties[:13], ties[:1000]),
+                     k4.score_matrix_plain(q_ties[:13], ties[:1000]))
+        from datasketch_tpu_torch.ops import lsh_ops
+
+        self.compare(
+            "score_matrix", "scan k=%d ties alive cutoff" % BIG_K,
+            lsh_ops.topk_scan(halves, q_halves, BIG_K, n2, alive, count_ge=0.5),
+            k2.running_topk(q_halves, halves, BIG_K, n2, alive, 0.5,
+                            k4.score_matrix_plain, 8192),
+        )
+
+    def phase_signatures(self, n_docs: int = SIG_DOCS):
+        """End-to-end signatures of the bench corpus."""
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash, native
+        from datasketch_tpu_torch.kernels.minhash_sign import minhash_sign_plain
+        from datasketch_tpu_torch.ops.minhash_ops import init_permutations, perm_tensors
+
+        corpus = make_corpus(n_docs, seed=42)
+        kw = dict(num_perm=NUM_PERM, seed=1, out="device", device=self.device)
+        MinHash.bulk_signatures(corpus[:1024], **kw)  # warm the allocator
+        rates = []
+        for _ in range(2):
+            self.sync()
+            t0 = time.perf_counter()
+            sigs = MinHash.bulk_signatures(corpus, **kw)
+            self.sync()
+            rates.append(n_docs / (time.perf_counter() - t0))
+        check(sigs.shape == (n_docs, NUM_PERM) and sigs.device.type == self.device.type,
+              "signature matrix has shape %s on %s" % (tuple(sigs.shape), sigs.device))
+        flat, lengths = native.hash_ragged(corpus)
+        starts = np.zeros(n_docs, dtype=np.int64)
+        np.cumsum(lengths[:-1], out=starts[1:])
+        a, b = perm_tensors(1, NUM_PERM, self.device)
+        dev_flat = torch.from_numpy(flat.view(np.int32)).to(self.device)
+        plain = minhash_sign_plain(dev_flat, torch.from_numpy(starts).to(self.device),
+                                   torch.from_numpy(lengths).to(self.device), a, b)
+        check(torch.equal(sigs, plain), "bulk signatures differ from the plain version")
+        host = sigs.cpu().numpy().view(np.uint32)
+        pa, pb = init_permutations(1, NUM_PERM)
+        rows = np.random.RandomState(3).choice(n_docs, 16, replace=False)
+        for i in rows:
+            hv = flat[starts[i]: starts[i] + lengths[i]].astype(np.uint64)[:, None]
+            want = np.bitwise_and((hv * pa + pb) % np.uint64((1 << 61) - 1),
+                                  np.uint64(0xFFFFFFFF)).min(axis=0)
+            check(np.array_equal(host[i], want.astype(np.uint32)),
+                  "signature row %d differs from the host numpy formula" % i)
+        log("[signatures] %d docs x %d tokens: %s docs/s (hash + upload + kernel, "
+            "synced); plain version and 16 host rows agree" % (
+                n_docs, TOKENS_PER_DOC, " / ".join("%.1f" % r for r in rates)))
+        self.sig_rate = max(rates)
+        return host
+
+    def phase_index(self, real_sigs: np.ndarray, n_rows: int = N_INDEX):
+        from datasketch_tpu_torch import TorchMinHashLSH
+
+        sigs, src, dst, near = synth_index(n_rows, real_sigs)
+        index = TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, bucket_cap=128,
+                                device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index(range(n_rows), sigs)
+        status = index.status()
+        build_s = time.perf_counter() - t0
+        check(status["n_live"] == n_rows, "index holds %d rows" % status["n_live"])
+        log("[index] %d rows built in %.3f s (upload + fingerprints + sort); status %s"
+            % (n_rows, build_s, json.dumps(status)))
+        self.build_s = build_s
+        return index, sigs, src, dst, near
+
+    def phase_serving(self, index, sigs, src, dst, near, n_queries: int = N_QUERIES):
+        queries = sigs[dst[-n_queries:]]
+        expect = src[-n_queries:]
+        self.qps = {}
+
+        def timed(label, fn, reps=3):
+            fn()  # first call of the shape
+            best = 0.0
+            out = None
+            for _ in range(reps):
+                self.sync()
+                t0 = time.perf_counter()
+                out = fn()
+                self.sync()
+                best = max(best, n_queries / (time.perf_counter() - t0))
+            self.qps[label] = best
+            return out
+
+        def recall(rows, scored=True):
+            hits = 0
+            for want, row in zip(expect, rows):
+                keys = [kk for kk, _ in row] if scored else row
+                hits += int(want) in keys
+            return hits / len(rows)
+
+        for method in ("scan", "bands", "auto"):
+            rows = timed("top_k k=%d %s" % (TOP_K, method),
+                         lambda m=method: index.top_k(queries, TOP_K, method=m))
+            if method == "scan":  # bands may find fewer than k candidates
+                check(all(len(r) == TOP_K for r in rows), "top_k(scan) short rows")
+            rec = recall(rows)
+            log("[serving] top_k k=%d %-5s %10.1f q/s recall %.4f truncated %d"
+                % (TOP_K, method, self.qps["top_k k=%d %s" % (TOP_K, method)], rec,
+                   index.last_truncated))
+            if method == "scan":
+                check(rec >= 0.99, "scan recall %.4f < 0.99" % rec)
+                scan_rows = rows
+        for method in ("bands", "scan"):
+            rows = timed("query_batch 0.5 %s" % method,
+                         lambda m=method: index.query_batch(queries, return_scores=True,
+                                                            method=m))
+            rec = recall(rows)
+            check(all(s >= 0.5 for row in rows for _, s in row),
+                  "query_batch(%s) returned a score below the threshold" % method)
+            log("[serving] query_batch 0.5 %-5s %10.1f q/s recall %.4f truncated %d"
+                % (method, self.qps["query_batch 0.5 %s" % method], rec,
+                   index.last_truncated))
+            if method == "scan":
+                check(rec >= 0.99, "threshold scan recall %.4f < 0.99" % rec)
+        rows = timed("top_k k=%d scan" % BIG_K,
+                     lambda: index.top_k(queries, BIG_K, method="scan"))
+        check(all(len(r) == BIG_K for r in rows), "top_k(k=%d) short rows" % BIG_K)
+        check(all(r[:TOP_K] == s for r, s in zip(rows, scan_rows)),
+              "top_k(k=%d) does not extend the k=%d answer" % (BIG_K, TOP_K))
+        log("[serving] top_k k=%d scan %10.1f q/s (kernel 4)"
+            % (BIG_K, self.qps["top_k k=%d scan" % BIG_K]))
+        hits = index.query_batch(sigs[near[:1]], method="scan")[0]
+        check(set(near.tolist()) <= set(hits),
+              "escalated threshold scan missed near-copies (%d hits)" % len(hits))
+        log("[serving] escalated threshold scan: %d matches (> 128) incl. all %d "
+            "near-copies" % (len(hits), len(near)))
+        removed = list(dict.fromkeys(int(x) for x in expect))[:N_REMOVE]
+        for key in removed:
+            index.remove(key)
+        gone = set(removed)
+        for method in ("scan", "bands"):
+            rows = timed("top_k k=%d %s after remove" % (TOP_K, method),
+                         lambda m=method: index.top_k(queries, TOP_K, method=m))
+            check(not any(kk in gone for row in rows for kk, _ in row),
+                  "top_k(%s) returned a removed key" % method)
+            rows = index.query_batch(queries, method=method)
+            check(not any(kk in gone for row in rows for kk in row),
+                  "query_batch(%s) returned a removed key" % method)
+        log("[serving] after %d removals: scan %.1f q/s, bands %.1f q/s; no removed key "
+            "returned" % (len(removed), self.qps["top_k k=%d scan after remove" % TOP_K],
+                          self.qps["top_k k=%d bands after remove" % TOP_K]))
+
+    def phase_facade_parity(self, sigs: np.ndarray, n_rows: int = PARITY_ROWS,
+                            n_queries: int = PARITY_QUERIES) -> None:
+        """The CUDA facade against a device='cpu' one on one sub-index."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchMinHashLSH
+
+        sub = sigs[:n_rows]
+        rng = np.random.RandomState(17)
+        rows = rng.choice(n_rows, n_queries, replace=False)
+        keep = rng.rand(n_queries, NUM_PERM) < 0.7
+        noise = rng.randint(0, 1 << 32, size=keep.shape, dtype=np.uint64).astype(np.uint32)
+        queries = np.where(keep, sub[rows], noise)
+        pair = [TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=d)
+                for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index(range(n_rows), sub)
+
+        def same(label, fn):
+            got = [fn(ix) for ix in pair]
+            check(got[0] == got[1], "facade parity: %s differs" % label)
+            check(pair[0].last_truncated == pair[1].last_truncated,
+                  "facade parity: %s last_truncated differs" % label)
+
+        def dispatch(ix, method):
+            q = ix._queries(queries)
+            out = ix._query_dispatch(q, 0.5, method)
+            return [None if t is None else np.asarray(torch.as_tensor(t).cpu())
+                    for t in out[:4]] + [out[4]]
+
+        def same_dispatch(method):
+            got = [dispatch(ix, method) for ix in pair]
+            for x, y in zip(got[0], got[1]):
+                check(np.array_equal(x, y),
+                      "facade parity: threshold %s ids/scores/n_match/truncated" % method)
+
+        for rnd in range(2):
+            for method in ("scan", "bands", "auto"):
+                same("top_k %s" % method, lambda ix, m=method: ix.top_k(queries, TOP_K, m))
+                same("query_batch %s" % method,
+                     lambda ix, m=method: ix.query_batch(queries, return_scores=True,
+                                                         method=m))
+            for method in ("scan", "bands"):
+                same_dispatch(method)
+            same("top_k k=200 scan", lambda ix: ix.top_k(queries, 200, "scan"))
+            if rnd == 0:
+                for key in rng.choice(n_rows, 500, replace=False).tolist():
+                    for ix in pair:
+                        ix.remove(key)
+        log("[facade parity] %d rows x %d queries: CUDA and CPU facades agree on ids, "
+            "scores, n_match and last_truncated (before and after 500 removals)"
+            % (n_rows, n_queries))
+
+
+def make_corpus(n_docs: int, seed: int = 42):
+    """The bench corpus: 10-byte tokens from a 30,000-word vocabulary,
+    TOKENS_PER_DOC per doc (``bench.py::make_corpus``)."""
+    rng = np.random.RandomState(seed)
+    vocab = [bytes(rng.randint(0, 256, size=10, dtype=np.uint8)) for _ in range(30000)]
+    return [
+        [vocab[j] for j in rng.randint(0, len(vocab), size=TOKENS_PER_DOC)]
+        for _ in range(n_docs)
+    ]
+
+
+def synth_index(n: int, head: np.ndarray, dup_rate: float = 0.2, seed: int = 9):
+    """Index rows: random signatures whose first rows are ``head`` (real
+    signatures), ``N_NEAR`` near-copies of head row 0 (90% of slots kept,
+    own generator), then a ``dup_rate`` share of planted near-duplicates
+    of earlier rows (``benchmarks/scale_benchmark.py::synth_signatures``).
+    Returns (sigs, src, dst, near_rows)."""
+    rng = np.random.RandomState(seed)
+    sigs = rng.randint(0, 1 << 32, size=(n, head.shape[1]), dtype=np.uint64).astype(
+        np.uint32
+    )
+    sigs[: head.shape[0]] = head
+    near_rng = np.random.RandomState(11)
+    near = np.arange(head.shape[0], head.shape[0] + N_NEAR)
+    keep = near_rng.rand(N_NEAR, head.shape[1]) < 0.9
+    sigs[near] = np.where(keep, head[0], sigs[near])
+    n_dup = int(n * dup_rate)
+    src = rng.randint(0, n - n_dup, size=n_dup)
+    dst = np.arange(n - n_dup, n)
+    keep = rng.rand(n_dup, head.shape[1]) < rng.uniform(0.6, 0.95, size=(n_dup, 1))
+    sigs[dst] = np.where(keep, sigs[src], sigs[dst])
+    return sigs, src, dst, np.concatenate([[0], near])
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, "nvidia-smi failed: %s" % out.stderr.strip())
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import datasketch_tpu_torch  # noqa: F401
+        from datasketch_tpu_torch.kernels import build
+    except ImportError as exc:
+        print("chip_smoke: run from a checkout of the repository (%s)" % exc,
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    try:
+        name = torch.cuda.get_device_name(0)
+        cap = torch.cuda.get_device_capability(0)
+        log("[env] python %s, torch %s, CUDA %s, %s, capability %d.%d, %d device(s)"
+            % (sys.version.split()[0], torch.__version__, torch.version.cuda, name,
+               cap[0], cap[1], torch.cuda.device_count()))
+        log(nvidia_smi_line())
+        check(cap >= (9, 0), "capability %d.%d < 9.0: the kernels target sm_90a" % cap)
+        smoke = Smoke(torch, "cuda")
+        smoke.phase_build()
+        log("[kernels] each kernel against its plain version on the card")
+        smoke.phase_kernels()
+        kmods = {k["name"]: smoke.kmod(k["name"]) for k in KERNELS}
+        for mod in kmods.values():
+            mod.launches = 0
+        real = smoke.phase_signatures()
+        index, sigs, src, dst, near = smoke.phase_index(real)
+        smoke.phase_serving(index, sigs, src, dst, near)
+        torch.cuda.synchronize()
+        launches = {name: mod.launches for name, mod in kmods.items()}
+        del index
+        torch.cuda.empty_cache()
+        smoke.phase_facade_parity(sigs)
+        log("[launches] main path (phases 4-6): %s" % json.dumps(launches))
+        for kname, count in launches.items():
+            check(count > 0, "kernel %s was not launched on the main path" % kname)
+        report = []
+        for k in KERNELS:
+            rec = smoke.record[k["name"]]
+            report.append({
+                "name": k["name"], "route": "cuda", "source": k["source"],
+                "replaces": k["replaces"], "launches": launches[k["name"]],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"],
+            })
+        log("[done] %.1f s in all" % (time.perf_counter() - t_start))
+        print(json.dumps({"kernels": report}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
+    except Exception:  # the boundary: report and fail
+        traceback.print_exc()
+        print("chip_smoke: FAILED (build log follows)\n" + build.build_log[-4000:],
+              file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH serving path.
+
+The JAX package (``datasketch_tpu``) is the reference this package is held
+against; this one imports ``torch`` and numpy only, never JAX and never
+``datasketch_tpu`` (whose ``__init__`` imports JAX).
+
+Device choice is explicit: public entry points take ``device=`` (default
+``"cuda"``). ``device="cuda"`` without an sm_90+ card raises; it never
+falls back to the CPU. ``device="cpu"`` runs the plain PyTorch twins of the
+hand-written Hopper kernels (``datasketch_tpu_torch.kernels``).
+
+Importing this package creates no CUDA context and builds nothing: the
+kernels compile with ``nvcc`` at first use on the card.
+"""
+
+from datasketch_tpu_torch.models.minhash import MinHash
+from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
+
+__all__ = ["MinHash", "TorchMinHashLSH"]

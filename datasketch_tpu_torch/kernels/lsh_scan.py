@@ -1,0 +1,150 @@
+"""Kernel 2 wrapper: fused exact-scan top-k with hit counting (k <= 128).
+
+CUDA source: ``datasketch_tpu_torch/csrc/lsh_scan.cu`` (replaces
+``datasketch_tpu/ops/pallas_kernels.py::_topk_scan_kernel`` in its plain
+and alive-mask modes). CPU tensors take the plain PyTorch version; CUDA
+tensors launch the kernel or raise.
+
+:func:`running_topk` is the tiled running top-k that the plain version
+runs over :func:`~datasketch_tpu_torch.kernels.score.score_matrix_plain`
+and that ``ops.lsh_ops.topk_scan`` runs over kernel 4 for k > 128.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from datasketch_tpu_torch.device import inv_width
+from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.kernels.score import score_matrix_plain
+
+__all__ = [
+    "topk_scan",
+    "topk_scan_plain",
+    "running_topk",
+    "min_hit_count",
+    "MAX_K",
+    "launches",
+]
+
+launches = 0
+
+MAX_K = 128  # the kernel keeps at most this many entries per query
+_QB, _RB = 32, 64  # query rows per block, db rows per tile (common.cuh)
+_MAX_SPLITS = 64
+_ID_MASK = (1 << 31) - 1
+_PLAIN_TILE = 4096
+
+
+def min_hit_count(cutoff: float, p: int) -> int:
+    """Least count c whose f32 score ``f32(c) * f32(1/p)`` is >= f32(cutoff)
+    (p + 1 if none): the exact integer form of the f32 ``score >= cutoff``."""
+    scores = np.arange(p + 1, dtype=np.float32) * np.float32(inv_width(p))
+    ok = np.nonzero(scores >= np.float32(cutoff))[0]
+    return int(ok[0]) if ok.size else p + 1
+
+
+def _n_splits(nq: int, n: int, sms: int) -> int:
+    """db splits per query block: enough blocks to fill every SM a few
+    times over, with at least 8 tiles per split."""
+    q_blocks = -(-nq // _QB)
+    want = -(-4 * sms // q_blocks)
+    return max(1, min(want, -(-n // (8 * _RB)), _MAX_SPLITS))
+
+
+def running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
+                 score_fn, tile: int = _PLAIN_TILE):
+    """Exact top-k over db tiles with a running carry.
+
+    ``score_fn(q, db_tile)`` gives f32[Q, t] scores >= 0. Per query, the
+    top-k (id, score) among rows < ``n_valid`` that ``alive`` keeps and
+    that score >= ``cutoff`` (f32 compare), in (score desc, id asc) order,
+    empty slots (-1, -1.0), and the count of such rows. Every candidate is
+    one int64 key ``score_bits << 31 | (2**31 - 1 - id)``: non-negative f32
+    bit patterns order like the floats, and keys are unique, so the top-k
+    of keys has no ties to break.
+    """
+    n = db.shape[0]
+    nq = q.shape[0]
+    dev = q.device
+    cut = float(np.float32(cutoff))
+    best = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(nq, dtype=torch.int64, device=dev)
+    for r0 in range(0, min(n, n_valid), tile):
+        r1 = min(n, r0 + tile)
+        sc = score_fn(q, db[r0:r1])
+        ids = torch.arange(r0, r1, device=dev)
+        valid = ids < n_valid
+        if alive is not None:
+            valid &= alive[r0:r1]
+        hit = valid[None, :] & (sc >= cut)
+        cnt += hit.sum(dim=1)
+        key = (sc.view(torch.int32).to(torch.int64) << 31) | (_ID_MASK - ids)[None, :]
+        key = torch.where(hit, key, -1)
+        cand = torch.cat([best, key], dim=1)
+        best = torch.topk(cand, k, dim=1).values
+    found = best >= 0
+    out_ids = torch.where(found, _ID_MASK - (best & _ID_MASK), -1).to(torch.int32)
+    out_sc = torch.where(
+        found, (best >> 31).to(torch.int32).view(torch.float32), -1.0
+    )
+    return out_ids, out_sc, cnt.to(torch.int32)
+
+
+def topk_scan_plain(db, q, k: int, n_valid: int, alive, cutoff: float):
+    """Plain PyTorch twin of the kernel (same arguments, same result)."""
+    return running_topk(q, db, k, n_valid, alive, cutoff, score_matrix_plain)
+
+
+def topk_scan(db, q, k: int, n_valid: int, alive=None, cutoff: float = 0.0):
+    """Top-k (ids, scores) and hit counts of every query over the table.
+
+    Args:
+        db: int32[N, P] stored signatures; q: int32[Q, P] queries.
+        k: results per query, 1..128.
+        n_valid: rows >= n_valid are ignored.
+        alive: optional bool[N] tombstone mask (False = removed).
+        cutoff: only rows scoring >= cutoff are hits (0.0 = every row).
+
+    Returns:
+        ids int32[Q, k] and scores f32[Q, k] in (score desc, id asc) order,
+        empty slots (-1, -1.0); counts int32[Q] of hits.
+    """
+    if not 1 <= k <= MAX_K:
+        raise ValueError("topk_scan kernel takes 1 <= k <= %d, got %d" % (MAX_K, k))
+    if q.device.type == "cpu":
+        return topk_scan_plain(db, q, k, n_valid, alive, cutoff)
+    tensors = (db, q) if alive is None else (db, q, alive)
+    build.require_cuda("topk_scan", *tensors)
+    n, p = db.shape
+    nq = q.shape[0]
+    if q.shape[1] != p or db.dtype != torch.int32 or q.dtype != torch.int32:
+        raise ValueError("topk_scan: want int32 db [N, P] and q [Q, P]")
+    if alive is not None and (alive.dtype != torch.bool or alive.shape[0] < n):
+        raise ValueError("topk_scan: alive must be bool[N]")
+    dev = q.device
+    ids = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    sc = torch.full((nq, k), -1.0, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(nq, dtype=torch.int32, device=dev)
+    if nq == 0:
+        return ids, sc, cnt
+    splits = _n_splits(nq, n, build.num_sms(q))
+    part_cnt = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
+    part_id = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
+    lib = build.library()
+    stream = build.stream_ptr(q)
+    global launches
+    launches += 1
+    err = lib.ds_topk_scan(
+        db.data_ptr(), q.data_ptr(), None if alive is None else alive.data_ptr(),
+        nq, n, p, int(n_valid), min_hit_count(cutoff, p), k, splits,
+        part_cnt.data_ptr(), part_id.data_ptr(), cnt.data_ptr(), stream,
+    )
+    build.check(err, "ds_topk_scan")
+    err = lib.ds_topk_merge(
+        part_cnt.data_ptr(), part_id.data_ptr(), nq, splits, k, p,
+        ids.data_ptr(), sc.data_ptr(), stream,
+    )
+    build.check(err, "ds_topk_merge")
+    return ids, sc, cnt

@@ -1,0 +1,403 @@
+"""TorchMinHashLSH -- device-resident Jaccard-threshold index on the card.
+
+Port of ``datasketch_tpu/models/tpu_lsh.py::TpuMinHashLSH``: signatures
+and band tables stay on ``device``; queries are batched probes, kernel
+reranks and kernel scans (:mod:`datasketch_tpu_torch.ops.lsh_ops`), and
+the host receives one compact buffer per batch. Same banding, the same
+(b, r) optimizer and the same answers, ties included.
+
+The stored table is not padded (the JAX package pads to a power of two to
+bound its compile shapes). The power-of-two row count is still computed,
+because ``method="auto"`` and the scan's result cap decide on it, so both
+facades take the same path for the same corpus.
+"""
+
+from __future__ import annotations
+
+from typing import Hashable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from datasketch_tpu_torch.device import as_sig_tensor, resolve_device
+from datasketch_tpu_torch.models.lsh_params import optimal_param
+from datasketch_tpu_torch.models.minhash import pow2_at_least
+from datasketch_tpu_torch.ops import lsh_ops
+
+__all__ = ["TorchMinHashLSH"]
+
+_METHODS = ("auto", "bands", "scan")
+
+
+def _host_rows(minhashes) -> np.ndarray:
+    """uint32[N, P] from a sequence of rows or objects with ``hashvalues``
+    (uint64 MinHash state holds values < 2**32)."""
+    rows = [
+        np.asarray(m.hashvalues if hasattr(m, "hashvalues") else m)
+        .astype(np.uint64).astype(np.uint32)
+        for m in minhashes
+    ]
+    return np.stack(rows) if rows else np.zeros((0, 0), dtype=np.uint32)
+
+
+def _as_signature_matrix(minhashes, device: torch.device) -> torch.Tensor:
+    """Signatures as an int32[N, P] tensor on ``device``: a uint32 numpy
+    matrix, a tensor (int32 bits), or a sequence of rows / objects with
+    ``hashvalues``."""
+    if isinstance(minhashes, (np.ndarray, torch.Tensor)) and minhashes.ndim == 2:
+        return as_sig_tensor(minhashes, device)
+    return as_sig_tensor(_host_rows(minhashes), device)
+
+
+def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:
+    """Host decode of compacted results: each row's valid slots, in order,
+    -> keys (with scores when asked). One boolean index and one
+    ``tolist`` per batch; Python touches only the valid slots."""
+    hit = ids_host >= 0
+    found = [keys[p] for p in ids_host[hit].tolist()]
+    if return_scores:
+        found = list(zip(found, sc_host[hit].tolist()))
+    out = []
+    pos = 0
+    for count in hit.sum(axis=1).tolist():
+        out.append(found[pos: pos + count])
+        pos += count
+    return out
+
+
+class TorchMinHashLSH:
+    """Device-resident MinHash LSH.
+
+    Args:
+        threshold: Jaccard threshold the banding is optimized for; also the
+            default rerank cutoff of threshold queries.
+        num_perm: signature length.
+        weights: (fp_weight, fn_weight) for the (b, r) optimizer.
+        params: explicit (b, r) override.
+        bucket_cap: max bucket members gathered per (query, band);
+            overflow is counted in ``last_truncated``.
+        rerank: filter candidates by estimated Jaccard >= threshold.
+        max_results: cap on threshold-query results per query (None =
+            all candidates); overflow is counted in ``last_truncated``.
+        device: ``"cuda"`` (default) or ``"cpu"`` (plain PyTorch versions
+            of the kernels). No silent fallback.
+    """
+
+    def __init__(
+        self,
+        threshold: float = 0.9,
+        num_perm: int = 128,
+        weights: tuple = (0.5, 0.5),
+        params: Optional[tuple] = None,
+        bucket_cap: int = 128,
+        rerank: bool = True,
+        max_results: Optional[int] = None,
+        device="cuda",
+    ):
+        if threshold > 1.0 or threshold < 0.0:
+            raise ValueError("threshold must be in [0.0, 1.0]")
+        if num_perm < 2:
+            raise ValueError("Too few permutation functions")
+        self.device = resolve_device(device)
+        self.threshold = threshold
+        self.h = num_perm
+        if params is not None:
+            self.b, self.r = params
+            if self.b * self.r > num_perm:
+                raise ValueError("b*r must be <= num_perm")
+        else:
+            self.b, self.r = optimal_param(threshold, num_perm, *weights)
+        self.bucket_cap = bucket_cap
+        self.rerank = rerank
+        self.max_results = max_results
+
+        self._keys: list = []  # position -> user key (None once removed)
+        self._key_to_pos: dict = {}
+        self._sigs = None  # int32[N, P] on device, N = rows ever indexed
+        self._sorted_fp = None  # int64[b, N]
+        self._sorted_ids = None  # int32[b, N]
+        self._pending_sigs: list = []  # inserted rows awaiting a rebuild
+        self._alive = None  # host bool[N]; False = removed
+        self._alive_dev = None  # cached (device mask or None, all_alive)
+        self.last_truncated = 0
+
+    # ------------------------------------------------------------------ build
+
+    @property
+    def _n_real(self) -> int:
+        return 0 if self._sigs is None else self._sigs.shape[0]
+
+    def _check_width(self, sigs: torch.Tensor) -> None:
+        if sigs.shape[0] and sigs.shape[1] != self.h:
+            raise ValueError(
+                "Expecting minhash with length %d, got %d" % (self.h, sigs.shape[1])
+            )
+
+    def index(self, keys: Sequence[Hashable], minhashes) -> None:
+        """Bulk-build from parallel (keys, signatures): a uint32[N, P] numpy
+        matrix, an int32 tensor, or rows / MinHash-like objects."""
+        self._flush_pending()
+        keys = list(keys)
+        sigs = _as_signature_matrix(minhashes, self.device)
+        if sigs.shape[0] != len(keys):
+            raise ValueError("keys and minhashes must have equal length")
+        self._check_width(sigs)
+        if not keys:
+            return
+        seen = set()
+        for k in keys:
+            if k in self._key_to_pos or k in seen:
+                raise ValueError("The given key already exists: %r" % (k,))
+            seen.add(k)
+        base = len(self._keys)
+        for i, k in enumerate(keys):
+            self._key_to_pos[k] = base + i
+        self._keys.extend(keys)
+        self._append(sigs)
+
+    def insert(self, key: Hashable, minhash, check_duplication: bool = True) -> None:
+        """Insert one (key, signature); buffered until the next query."""
+        if check_duplication and key in self._key_to_pos:
+            raise ValueError("The given key already exists")
+        hv = _host_rows([minhash])[0]
+        if hv.shape[0] != self.h:
+            raise ValueError(
+                "Expecting minhash with length %d, got %d" % (self.h, hv.shape[0])
+            )
+        self._key_to_pos[key] = len(self._keys)
+        self._keys.append(key)
+        self._pending_sigs.append(hv)
+
+    def _flush_pending(self) -> None:
+        if not self._pending_sigs:
+            return
+        tail = np.stack(self._pending_sigs)
+        self._pending_sigs = []
+        self._append(as_sig_tensor(tail, self.device))
+
+    def _append(self, sigs: torch.Tensor) -> None:
+        """Add rows to the table and rebuild the band tables."""
+        if self._sigs is not None:
+            sigs = torch.cat([self._sigs, sigs], dim=0)
+        self._sigs = sigs
+        fps = lsh_ops.band_fingerprints(sigs, self.b, self.r)
+        self._sorted_fp, self._sorted_ids = lsh_ops.build_tables(fps)
+        n = sigs.shape[0]
+        old = self._alive
+        self._alive = np.ones(n, dtype=bool)
+        if old is not None:
+            self._alive[: old.shape[0]] = old
+        self._alive_dev = None
+
+    def remove(self, key: Hashable) -> None:
+        """Tombstone ``key``: its row stays in the tables but is masked from
+        every query (kernel 2's ``alive`` mask on the scan path)."""
+        self._flush_pending()
+        if key not in self._key_to_pos:
+            raise ValueError("The given key does not exist")
+        pos = self._key_to_pos.pop(key)
+        self._alive[pos] = False
+        self._keys[pos] = None
+        self._alive_dev = None
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._key_to_pos
+
+    def __len__(self) -> int:
+        return len(self._key_to_pos)
+
+    def status(self) -> dict:
+        """Health counters: live/tombstoned rows, banding, bucket occupancy
+        against ``bucket_cap`` and the device bytes of table and index."""
+        self._flush_pending()
+        n_live = len(self._key_to_pos)
+        out = {
+            "n_live": n_live,
+            "n_tombstoned": self._n_real - n_live,
+            "n_padded": 0,
+            "bands": self.b,
+            "rows_per_band": self.r,
+            "bucket_cap": self.bucket_cap,
+            "last_truncated": self.last_truncated,
+            "device_bytes": 0,
+            "max_bucket": 0,
+            "distinct_buckets_min": 0,
+        }
+        if self._sigs is not None:
+            out["device_bytes"] = int(
+                sum(t.numel() * t.element_size()
+                    for t in (self._sigs, self._sorted_fp, self._sorted_ids))
+            )
+            max_run, n_distinct = lsh_ops.bucket_stats(self._sorted_fp)
+            stats = torch.stack([max_run.max(), n_distinct.min()]).cpu()
+            out["max_bucket"] = int(stats[0])
+            out["distinct_buckets_min"] = int(stats[1])
+        return out
+
+    # ------------------------------------------------------------------ query
+
+    def _alive_state(self):
+        """(device bool mask or None, all_alive), cached until a remove."""
+        if self._alive_dev is None:
+            if self._alive is None or bool(self._alive.all()):
+                self._alive_dev = (None, True)
+            else:
+                mask = torch.from_numpy(self._alive).to(self.device)
+                self._alive_dev = (mask, False)
+        return self._alive_dev
+
+    def _mask_dead(self, flat_ids):
+        """Replace tombstoned candidate ids with -1."""
+        alive_dev, all_alive = self._alive_state()
+        if all_alive:
+            return flat_ids
+        safe = torch.where(flat_ids >= 0, flat_ids, 0).long()
+        return torch.where((flat_ids >= 0) & alive_dev[safe], flat_ids, -1)
+
+    def _queries(self, minhashes) -> torch.Tensor:
+        q = _as_signature_matrix(minhashes, self.device)
+        if q.shape[1] != self.h:
+            raise ValueError(
+                "Expecting minhash with length %d, got %d" % (self.h, q.shape[1])
+            )
+        return q
+
+    def _pick(self, method: str, nq: int) -> str:
+        """'auto' -> scan when the JAX index's padded row count is within
+        the band path's gather budget Q * b * bucket_cap."""
+        if method != "auto":
+            return method
+        gather_slots = nq * self.b * self.bucket_cap
+        return "scan" if pow2_at_least(self._n_real) <= gather_slots else "bands"
+
+    def query(self, minhash, threshold: Optional[float] = None) -> list:
+        """Single query; returns candidate keys (reranked if enabled)."""
+        return self.query_batch([minhash], threshold=threshold)[0]
+
+    def query_batch(self, minhashes, threshold: Optional[float] = None,
+                    return_scores: bool = False, method: str = "auto") -> list:
+        """Batched threshold query, finished on the card.
+
+        method: ``'bands'`` (band probe -> kernel-3 rerank -> dedupe,
+        cutoff, compaction), ``'scan'`` (kernel-2 scan of every stored
+        signature: all keys scoring >= threshold, up to ``max_results`` /
+        1024 per query), or ``'auto'`` (scan when the corpus is within the
+        band gather budget, as :meth:`top_k`).
+
+        Returns per query a list of keys, or of (key, score) pairs when
+        ``return_scores`` (scores descending).
+        """
+        if method not in _METHODS:
+            raise ValueError("method must be 'auto', 'bands' or 'scan'")
+        self._flush_pending()
+        if self._sigs is None or not len(self._keys):
+            return [[] for _ in minhashes]
+        q = self._queries(minhashes)
+        cutoff = self.threshold if threshold is None else threshold
+        sel_ids, sel_sc, n_match, trunc, max_out = self._query_dispatch(
+            q, cutoff, method, self.rerank or return_scores
+        )
+        self.last_truncated = int(trunc) + int(
+            (n_match.long() - max_out).clamp_min(0).sum()
+        )
+        ids_host = sel_ids.cpu().numpy()
+        sc_host = None if sel_sc is None else sel_sc.cpu().numpy()
+        return _decode_rows(ids_host, sc_host, self._keys, return_scores)
+
+    def _query_dispatch(self, q: torch.Tensor, cutoff: float, method: str,
+                        need_scores: bool = True):
+        """One threshold batch on the card. Returns (sel_ids, sel_sc or
+        None, n_match, truncated, max_out); ``n_match`` counts matches
+        before the ``max_out`` cap. Without ``need_scores`` (rerank off,
+        no scores asked) the signature table is never read."""
+        if method == "auto" and not self.rerank:
+            method = "bands"
+        method = self._pick(method, q.shape[0])
+        if method == "scan":
+            if not self.rerank:
+                raise ValueError(
+                    "method='scan' requires rerank=True (it scores every "
+                    "stored signature; without a cutoff the result would "
+                    "be the whole corpus)"
+                )
+            max_out = min(self.max_results or 1024, pow2_at_least(self._n_real))
+            alive = self._alive_state()[0]
+            k = min(max_out, lsh_ops.lsh_scan.MAX_K)
+            while True:
+                sel_ids, sel_sc, n_match = lsh_ops.topk_scan(
+                    self._sigs, q, k, alive=alive, count_ge=cutoff
+                )
+                # kernel-sized k first; rerun at the full budget only when
+                # some query matched more rows than it returned
+                if k == max_out or not bool((n_match > k).any()):
+                    return sel_ids, sel_sc, n_match, 0, k
+                k = max_out
+        c = self.b * self.bucket_cap
+        max_out = c if self.max_results is None else min(self.max_results, c)
+        all_alive = self._alive_state()[1]
+        if not need_scores:
+            if all_alive:
+                sel_ids, n_match, trunc = lsh_ops.query_candidates_fused(
+                    self._sorted_fp, self._sorted_ids, q, self.b, self.r,
+                    self.bucket_cap, max_out,
+                )
+            else:
+                flat, trunc = self._probe(q)
+                sel_ids, n_match = lsh_ops.unique_compact(flat, max_out)
+            return sel_ids, None, n_match, trunc, max_out
+        cut = float(cutoff) if self.rerank else -1.0
+        if all_alive:
+            sel_ids, sel_sc, n_match, trunc = lsh_ops.query_fused(
+                self._sorted_fp, self._sorted_ids, self._sigs, q, self.b,
+                self.r, self.bucket_cap, cut, max_out,
+            )
+            return sel_ids, sel_sc, n_match, trunc, max_out
+        flat, trunc = self._probe(q)
+        scores = lsh_ops.rerank_jaccard(self._sigs, q, flat)
+        sel_ids, sel_sc, n_match = lsh_ops.threshold_select(scores, flat, cut, max_out)
+        return sel_ids, sel_sc, n_match, trunc, max_out
+
+    def _probe(self, q: torch.Tensor):
+        """Band candidates int32[Q, b*cap] with tombstones masked, and the
+        truncation count."""
+        q_fps = lsh_ops.band_fingerprints(q, self.b, self.r)
+        ids, trunc = lsh_ops.query_tables(
+            self._sorted_fp, self._sorted_ids, q_fps, cap=self.bucket_cap
+        )
+        return self._mask_dead(ids.reshape(q.shape[0], -1)), trunc
+
+    def top_k(self, minhashes, k: int, method: str = "auto") -> list:
+        """Top-k most similar indexed keys per query, as (key, score) pairs.
+
+        method: ``'bands'`` (band probe -> kernel-3 rerank -> dedupe
+        top-k), ``'scan'`` (exact scan of every stored signature: kernel 2
+        for k <= 128, kernel 4 above), or ``'auto'`` (scan when the JAX
+        index's padded row count is <= Q * b * bucket_cap).
+        """
+        if method not in _METHODS:
+            raise ValueError("method must be 'auto', 'bands' or 'scan'")
+        self._flush_pending()
+        if self._sigs is None or not len(self._keys):
+            return [[] for _ in minhashes]
+        q = self._queries(minhashes)
+        top_ids, top_sc, trunc = self._top_k_dispatch(q, k, method)
+        self.last_truncated = int(trunc)
+        return _decode_rows(top_ids.cpu().numpy(), top_sc.cpu().numpy(), self._keys, True)
+
+    def _top_k_dispatch(self, q: torch.Tensor, k: int, method: str):
+        """One top-k batch on the card: (ids, scores, truncated)."""
+        method = self._pick(method, q.shape[0])
+        if method == "scan":
+            top_ids, top_sc = lsh_ops.topk_scan(
+                self._sigs, q, k, alive=self._alive_state()[0]
+            )
+            return top_ids, top_sc, 0
+        if self._alive_state()[1]:
+            return lsh_ops.topk_fused(
+                self._sorted_fp, self._sorted_ids, self._sigs, q, self.b,
+                self.r, self.bucket_cap, k,
+            )
+        flat, trunc = self._probe(q)
+        scores = lsh_ops.rerank_jaccard(self._sigs, q, flat)
+        top_ids, top_sc = lsh_ops.topk_candidates(scores, flat, k, max_dup=self.b)
+        return top_ids, top_sc, trunc

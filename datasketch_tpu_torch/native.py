@@ -1,0 +1,104 @@
+"""Host SHA1 token hashing: the JAX package's C++ extension, built for the port.
+
+The source is compiled by path (``datasketch_tpu/native/src/
+dshash_module.cpp`` + ``dshash_core.h``) with the flags of
+``datasketch_tpu/native/corpus.py`` into the port's git-ignored build
+directory and loaded with ``importlib``; ``datasketch_tpu.native`` itself
+is never imported (the JAX package's ``__init__`` imports JAX). The
+module is named by a hash of its sources, so a source change rebuilds it.
+If the build fails this raises: there is no slow path.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import os
+import subprocess
+import sysconfig
+import threading
+
+import numpy as np
+
+from datasketch_tpu_torch.kernels.build import BUILD_DIR
+
+__all__ = ["ALGO_SHA1_32", "load", "hash_ragged"]
+
+ALGO_SHA1_32 = 0
+
+_SRC_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "datasketch_tpu", "native", "src",
+)
+_SRC = os.path.join(_SRC_DIR, "dshash_module.cpp")
+_HDR = os.path.join(_SRC_DIR, "dshash_core.h")
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
+
+_lock = threading.Lock()
+_mod = None
+
+
+def _build() -> str:
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in (_SRC, _HDR):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    out = os.path.join(BUILD_DIR, "dshash_%s%s" % (digest.hexdigest()[:16], suffix))
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp.%d" % (out, os.getpid())
+    include = sysconfig.get_paths()["include"]
+    cmd = ["g++", *_FLAGS, "-I", include, _SRC, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "g++ failed to build the host SHA1 module (%d):\n%s"
+            % (proc.returncode, proc.stdout + proc.stderr)
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load():
+    """The ``_dshash`` extension module, built on first call (thread-safe)."""
+    global _mod
+    if _mod is not None:
+        return _mod
+    with _lock:
+        if _mod is None:
+            spec = importlib.util.spec_from_file_location("_dshash", _build())
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _mod = mod
+    return _mod
+
+
+def hash_ragged(docs, out: np.ndarray = None):
+    """SHA1-low-32 of every token of ``docs`` (lists of bytes), back to back.
+
+    Args:
+        docs: sequence of token sequences.
+        out: optional writable uint32 buffer of at least the total token
+            count (e.g. the numpy view of a pinned tensor); allocated when
+            None.
+
+    Returns:
+        (flat uint32[total] -- a view of ``out`` when given, lengths int32[B]).
+    """
+    n = len(docs)
+    lengths = (
+        np.fromiter(map(len, docs), np.int32, count=n) if n else np.zeros(0, np.int32)
+    )
+    starts = np.zeros(n, dtype=np.int64)
+    if n > 1:
+        np.cumsum(lengths[:-1], dtype=np.int64, out=starts[1:])
+    total = int(lengths.sum())
+    if out is None:
+        out = np.empty(total, dtype=np.uint32)
+    elif out.dtype != np.uint32 or out.shape[0] < total:
+        raise ValueError("out must be uint32 with room for %d tokens" % total)
+    flat = out[:total]
+    load().hash_ragged(docs, flat, starts, ALGO_SHA1_32, 0)
+    return flat, lengths

@@ -1,0 +1,262 @@
+"""Device-resident LSH band tables and query pipelines (functional core).
+
+Port of the functions of ``datasketch_tpu/ops/lsh_ops.py`` that the index
+facade calls. Conventions:
+
+- signatures: int32[N, P] tensors of uint32 bit patterns (equality only);
+- band fingerprints: int64 holding 0..2**32-1, so sorts and
+  ``searchsorted`` see the unsigned order of the JAX package's uint32;
+- tables: per band, fingerprints sorted with a stable sort (ties keep
+  ascending doc id) and the matching int32 doc ids;
+- tie order: ``lax.top_k`` puts the lowest index first among equal
+  scores, which is a stable descending sort; ``torch.topk`` is used only
+  on unique keys.
+
+Kernels: the rerank is kernel 3 (the ``db_sigs[cand_ids]`` gather fused
+in), the scan is kernel 2 for k <= 128 and a running top-k over kernel 4
+(the score matrix) above that, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from datasketch_tpu_torch.device import u32_bits
+from datasketch_tpu_torch.kernels import lsh_scan, rerank, score
+from datasketch_tpu_torch.ops.hashing import mix32
+
+__all__ = [
+    "band_fingerprints",
+    "build_tables",
+    "bucket_stats",
+    "query_tables",
+    "rerank_jaccard",
+    "topk_candidates",
+    "threshold_select",
+    "unique_compact",
+    "query_candidates_fused",
+    "query_fused",
+    "topk_fused",
+    "topk_scan",
+]
+
+_FP_SEED = 0x9E3779B9
+
+
+def band_fingerprints(sigs: torch.Tensor, b: int, r: int) -> torch.Tensor:
+    """Fingerprint per band: int32[N, P] -> int64[N, b] (0..2**32-1).
+
+    Sequential fmix32 fold over each band's r slots.
+    """
+    n = sigs.shape[0]
+    bands = sigs[:, : b * r].reshape(n, b, r)
+    h = torch.full((n, b), _FP_SEED, dtype=torch.int64, device=sigs.device)
+    for i in range(r):
+        h = mix32(h ^ u32_bits(bands[:, :, i]))
+    return h
+
+
+def build_tables(fps: torch.Tensor):
+    """Sort (fingerprint, doc id) per band: [N, b] -> ([b, N], [b, N]).
+
+    Returns (sorted_fp int64, sorted_ids int32); a bucket is a run of
+    equal fingerprints, its ids ascending.
+    """
+    sorted_fp, order = torch.sort(fps.T.contiguous(), dim=1, stable=True)
+    return sorted_fp, order.to(torch.int32)
+
+
+def bucket_stats(sorted_fp: torch.Tensor):
+    """(max_run int64[b], n_distinct int64[b]) of built band tables."""
+    b, n = sorted_fp.shape
+    idx = torch.arange(n, device=sorted_fp.device).expand(b, n)
+    boundary = torch.ones((b, n), dtype=torch.bool, device=sorted_fp.device)
+    boundary[:, 1:] = sorted_fp[:, 1:] != sorted_fp[:, :-1]
+    last_start = torch.cummax(torch.where(boundary, idx, 0), dim=1).values
+    run_len = idx - last_start + 1
+    return run_len.max(dim=1).values, boundary.sum(dim=1)
+
+
+def query_tables(sorted_fp, sorted_ids, q_fps, cap: int = 128):
+    """Batched band-bucket lookup.
+
+    Args:
+        sorted_fp, sorted_ids: [b, N] built tables.
+        q_fps: int64[Q, b] query fingerprints.
+        cap: max members gathered per (query, band) bucket run.
+
+    Returns:
+        ids int32[Q, b, cap] candidate doc ids, -1 where invalid;
+        truncated: int64 scalar tensor, candidates dropped by the cap.
+    """
+    b = sorted_fp.shape[0]
+    nq = q_fps.shape[0]
+    q_t = q_fps.T.contiguous()  # [b, Q]
+    start = torch.searchsorted(sorted_fp, q_t, side="left")
+    end = torch.searchsorted(sorted_fp, q_t, side="right")
+    pos = start[:, :, None] + torch.arange(cap, device=q_t.device)
+    valid = pos < end[:, :, None]
+    safe = torch.where(valid, pos, 0).reshape(b, nq * cap)
+    ids = torch.gather(sorted_ids, 1, safe)
+    ids = torch.where(valid, ids.reshape(b, nq, cap), -1)
+    trunc = (end - start - cap).clamp_min(0).sum()
+    return ids.permute(1, 0, 2).contiguous(), trunc
+
+
+def rerank_jaccard(db_sigs, q_sigs, cand_ids):
+    """f32[Q, C] estimated Jaccard of each query against its candidate
+    rows (0 where the id is -1): kernel 3, which reads the candidate rows
+    straight from the table."""
+    return rerank.rerank_scores(
+        db_sigs.contiguous(), q_sigs.contiguous(),
+        cand_ids.to(torch.int32).contiguous(),
+    )
+
+
+def _desc_stable(x: torch.Tensor, k: int):
+    """(values, positions) of the k largest per row, lowest position first
+    among equal values -- ``lax.top_k``'s order."""
+    vals, pos = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def _pad_cols(x: torch.Tensor, width: int, value) -> torch.Tensor:
+    if x.shape[1] >= width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[1]), value=value)
+
+
+def _dedupe_sorted(ids, scores):
+    """Sort each row by id (stable) and flag the first of each distinct
+    valid id. Returns (ids_s, sc_s, first)."""
+    ids_s, order = torch.sort(ids, dim=1, stable=True)
+    sc_s = torch.gather(scores, 1, order)
+    first = ids_s >= 0
+    first[:, 1:] &= ids_s[:, 1:] != ids_s[:, :-1]
+    return ids_s, sc_s, first
+
+
+def topk_candidates(scores, ids, k: int, max_dup: int = 0):
+    """Dedupe + top-k over gathered candidates.
+
+    Args:
+        scores: f32[Q, C]; ids: int32[Q, C] (-1 = invalid).
+        max_dup: if > 0, an id appears at most this many times per row;
+            the top ``k * max_dup`` scores are kept before the id sort.
+    Returns:
+        (top_ids int32[Q, k], top_scores f32[Q, k]), empty slots (-1, -1).
+    """
+    scores = torch.where(ids >= 0, scores, -1.0)
+    if max_dup and scores.shape[1] > k * max_dup:
+        scores, pos = _desc_stable(scores, k * max_dup)
+        ids = torch.gather(ids, 1, pos)
+    ids_s, sc_s, first = _dedupe_sorted(ids, scores)
+    sc_m = torch.where(first, sc_s, -1.0)
+    top_sc, pos = _desc_stable(sc_m, min(k, sc_m.shape[1]))
+    top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
+    return _pad_cols(top_ids, k, -1), _pad_cols(top_sc, k, -1.0)
+
+
+def threshold_select(scores, ids, cutoff, max_out: int):
+    """Dedupe + cutoff filter + score-ordered compaction.
+
+    Args:
+        scores: f32[Q, C] candidate scores; ids: int32[Q, C], -1 invalid.
+        cutoff: candidates scoring below it (f32 compare) are dropped;
+            -1.0 keeps every valid candidate.
+        max_out: output slots per query.
+    Returns:
+        (sel_ids int32[Q, max_out], sel_sc f32[Q, max_out], n_match
+        int32[Q]); ``n_match`` counts distinct matches before the cap.
+    """
+    cut = float(np.float32(cutoff))
+    sc = torch.where((ids >= 0) & (scores >= cut), scores, -1.0)
+    ids_s, sc_s, first = _dedupe_sorted(ids, sc)
+    first &= sc_s >= 0
+    sc_m = torch.where(first, sc_s, -1.0)
+    n_match = first.sum(dim=1, dtype=torch.int32)
+    top_sc, pos = _desc_stable(sc_m, min(max_out, sc_m.shape[1]))
+    top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
+    return _pad_cols(top_ids, max_out, -1), _pad_cols(top_sc, max_out, -1.0), n_match
+
+
+def unique_compact(ids, max_out: int):
+    """Distinct valid ids per row, ascending, in ``max_out`` slots; returns
+    (sel_ids int32[Q, max_out], n_distinct int32[Q])."""
+    zeros = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+    sel_ids, _, n = threshold_select(zeros, ids, -1.0, max_out)
+    return sel_ids, n
+
+
+def _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid):
+    q_fps = band_fingerprints(q_sigs, b, r)
+    ids, trunc = query_tables(sorted_fp, sorted_ids, q_fps, cap=cap)
+    flat = ids.reshape(q_sigs.shape[0], -1)
+    if n_valid is not None:
+        flat = torch.where(flat < n_valid, flat, -1)
+    return flat, trunc
+
+
+def query_candidates_fused(sorted_fp, sorted_ids, q_sigs, b: int, r: int,
+                           cap: int, max_out: int, n_valid=None):
+    """Candidates-only threshold query: band probes -> dedupe + compaction.
+    Returns (sel_ids int32[Q, max_out], n_match int32[Q], truncated)."""
+    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid)
+    sel_ids, n_match = unique_compact(flat, max_out)
+    return sel_ids, n_match, trunc
+
+
+def query_fused(sorted_fp, sorted_ids, db_sigs, q_sigs, b: int, r: int,
+                cap: int, cutoff, max_out: int, n_valid=None):
+    """Threshold query: fingerprints -> band probes -> rerank (kernel 3) ->
+    dedupe + cutoff + compaction. Returns (sel_ids, sel_sc, n_match,
+    truncated)."""
+    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid)
+    scores = rerank_jaccard(db_sigs, q_sigs, flat)
+    sel_ids, sel_sc, n_match = threshold_select(scores, flat, cutoff, max_out)
+    return sel_ids, sel_sc, n_match, trunc
+
+
+def topk_fused(sorted_fp, sorted_ids, db_sigs, q_sigs, b: int, r: int,
+               cap: int, k: int, n_valid=None):
+    """Top-k query: fingerprints -> band probes -> rerank (kernel 3) ->
+    dedupe top-k. Returns (top_ids, top_sc, truncated)."""
+    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid)
+    scores = rerank_jaccard(db_sigs, q_sigs, flat)
+    top_ids, top_sc = topk_candidates(scores, flat, k, max_dup=b)
+    return top_ids, top_sc, trunc
+
+
+def topk_scan(db_sigs, q_sigs, k: int, n_valid=None, alive=None,
+              tile: int = 8192, count_ge=None):
+    """Exact top-k by scoring every stored signature.
+
+    k <= 128 runs kernel 2 (fused scan, running top-k on chip, hit
+    counts); larger k runs a running top-k over ``tile``-row score
+    matrices from kernel 4.
+
+    Args:
+        db_sigs: int32[N, P]; q_sigs: int32[Q, P].
+        n_valid: rows >= n_valid are ignored (default N).
+        alive: optional bool[N] tombstone mask (False = removed).
+        count_ge: optional cutoff: also return the per-query count of
+            valid rows scoring >= it, and keep only such rows.
+
+    Returns:
+        (top_ids int32[Q, k], top_scores f32[Q, k]) -- plus ``n_match
+        int32[Q]`` when ``count_ge`` is given; empty slots (-1, -1).
+    """
+    n = db_sigs.shape[0]
+    nv = n if n_valid is None else int(n_valid)
+    cut = 0.0 if count_ge is None else float(count_ge)
+    db_sigs, q_sigs = db_sigs.contiguous(), q_sigs.contiguous()
+    if k <= lsh_scan.MAX_K:
+        ids, sc, cnt = lsh_scan.topk_scan(db_sigs, q_sigs, k, nv, alive, cut)
+    else:
+        ids, sc, cnt = lsh_scan.running_topk(
+            q_sigs, db_sigs, k, nv, alive, cut, score.score_matrix, tile
+        )
+    if count_ge is None:
+        return ids, sc
+    return ids, sc, cnt

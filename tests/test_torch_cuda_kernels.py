@@ -1,0 +1,118 @@
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where no card of capability >= 9.0 is present.
+This file imports no JAX, so on a machine with the card and no JAX it runs
+without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from datasketch_tpu_torch import TorchMinHashLSH
+from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.ops import lsh_ops
+from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs a card of capability >= 9.0 (sm_90a kernels)")
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _sigs(dev, n, p, seed, values=0):
+    g = _gen(dev, seed)
+    if values:
+        return torch.randint(0, values, (n, p), generator=g, device=dev, dtype=torch.int32)
+    return torch.randint(-(1 << 31), 1 << 31, (n, p), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def _launched(mod, fn):
+    before = mod.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("p", [64, 128, 200])
+@pytest.mark.parametrize("mix", [False, True])
+def test_sign_kernel_matches_plain(dev, p, mix):
+    g = _gen(dev, p)
+    lengths = torch.randint(0, 300, (257,), generator=g, device=dev, dtype=torch.int32)
+    lengths[:3] = 0
+    lengths[100] = 1500  # longer than the kernel's token tile
+    starts = torch.zeros(257, dtype=torch.int64, device=dev)
+    starts[1:] = torch.cumsum(lengths[:-1], 0)
+    flat = torch.randint(-(1 << 31), 1 << 31, (int(lengths.sum()),), generator=g,
+                         device=dev, dtype=torch.int32)
+    a, b = perm_tensors(1, p, dev)
+    got = _launched(minhash_sign, lambda: minhash_sign.minhash_sign(
+        flat, starts, lengths, a, b, mix))
+    assert torch.equal(got, minhash_sign.minhash_sign_plain(flat, starts, lengths, a, b, mix))
+
+
+@pytest.mark.parametrize("p", [66, 128])
+@pytest.mark.parametrize("k,cutoff,masked", [
+    (1, 0.0, False), (10, 0.0, True), (128, 0.0, False), (16, 0.5, True),
+])
+def test_topk_scan_kernel_matches_plain(dev, p, k, cutoff, masked):
+    db = _sigs(dev, 20011, p, 1, values=2)
+    q = _sigs(dev, 45, p, 2, values=2)
+    alive = torch.rand(20011, generator=_gen(dev, 3), device=dev) > 0.1 if masked else None
+    n_valid = 20011 - 500 if masked else 20011
+    got = _launched(lsh_scan, lambda: lsh_scan.topk_scan(db, q, k, n_valid, alive, cutoff))
+    want = lsh_scan.topk_scan_plain(db, q, k, n_valid, alive, cutoff)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_rerank_kernel_matches_plain(dev):
+    db = _sigs(dev, 5000, 128, 4, values=4)
+    q = _sigs(dev, 33, 128, 5, values=4)
+    cand = torch.randint(-1, 5000, (33, 333), generator=_gen(dev, 6), device=dev,
+                         dtype=torch.int32)
+    cand[7] = -1
+    got = _launched(rerank, lambda: rerank.rerank_scores(db, q, cand))
+    assert torch.equal(got, rerank.rerank_scores_plain(db, q, cand))
+
+
+@pytest.mark.parametrize("p", [66, 128])
+def test_score_kernel_and_large_k_scan_match_plain(dev, p):
+    db = _sigs(dev, 3001, p, 7, values=3)
+    q = _sigs(dev, 37, p, 8, values=3)
+    got = _launched(score, lambda: score.score_matrix(q, db))
+    assert torch.equal(got, score.score_matrix_plain(q, db))
+    got = lsh_ops.topk_scan(db, q, 200, n_valid=2900, count_ge=0.3)
+    want = lsh_scan.running_topk(q, db, 200, 2900, None, 0.3, score.score_matrix_plain)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_cuda_index_matches_cpu_index(dev):
+    rng = np.random.RandomState(9)
+    sigs = rng.randint(0, 1 << 32, size=(3000, 128), dtype=np.uint64).astype(np.uint32)
+    sigs[2000:] = np.where(rng.rand(1000, 128) < 0.8, sigs[:1000], sigs[2000:])
+    queries = sigs[2000:2064]
+    pair = [TorchMinHashLSH(threshold=0.5, device=d) for d in (dev, "cpu")]
+    for ix in pair:
+        ix.index(range(3000), sigs)
+        ix.remove(5)
+    for method in ("scan", "bands"):
+        got = [ix.top_k(queries, 10, method=method) for ix in pair]
+        assert got[0] == got[1]
+        got = [ix.query_batch(queries, return_scores=True, method=method) for ix in pair]
+        assert got[0] == got[1]

@@ -1,0 +1,85 @@
+"""Port hygiene: importing the port pulls in neither JAX nor the JAX package
+and creates no CUDA context; device choice is explicit; kernel wrappers
+take their plain version only for CPU tensors."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+from datasketch_tpu_torch.device import resolve_device
+from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_loads_no_jax_and_no_cuda_context():
+    code = "\n".join([
+        "import sys, torch",
+        "import datasketch_tpu_torch",
+        "from datasketch_tpu_torch import native, hashfunc, device",
+        "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops",
+        "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
+        "from datasketch_tpu_torch.kernels import build, lsh_scan, minhash_sign, rerank, score",
+        "from datasketch_tpu_torch.utils import profiling",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('jax', 'jaxlib', 'datasketch_tpu'))",
+        "assert not bad, bad",
+        "assert not torch.cuda.is_initialized()",
+        "print('clean')",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchMinHashLSH(threshold=0.5, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MinHash.bulk_signatures([[b"a", b"b"]], device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_pre_hopper_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (8, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "A100")
+    with pytest.raises(RuntimeError, match="sm_90a"):
+        resolve_device("cuda")
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "rerank", "score"])
+def test_wrapper_on_other_device_raises(name):
+    """A tensor that is neither on the CPU nor on a card never takes the
+    plain version (which would happily run on 'meta')."""
+    calls = {
+        "minhash_sign": lambda: minhash_sign.minhash_sign(
+            _meta((10,)), _meta((2,), torch.int64), _meta((2,)),
+            _meta((128,), torch.int64), _meta((128,), torch.int64)),
+        "topk_scan": lambda: lsh_scan.topk_scan(_meta((64, 128)), _meta((3, 128)), 5, 64),
+        "rerank": lambda: rerank.rerank_scores(_meta((64, 128)), _meta((3, 128)),
+                                               _meta((3, 7))),
+        "score": lambda: score.score_matrix(_meta((3, 128)), _meta((64, 128))),
+    }
+    mod = {"minhash_sign": minhash_sign, "topk_scan": lsh_scan, "rerank": rerank,
+           "score": score}[name]
+    before = mod.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        calls[name]()
+    assert mod.launches == before

@@ -1,0 +1,22 @@
+"""chip_smoke.py's main-path phases rehearsed on the CPU at a small size.
+
+The plain PyTorch versions stand in for the kernels, so a change that
+breaks the script's signatures -> index -> serving -> facade-parity checks
+fails here before it reaches a card.
+"""
+
+import torch
+
+import chip_smoke
+
+torch.set_num_threads(2)
+
+
+def test_smoke_main_path_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    real = smoke.phase_signatures(n_docs=300)
+    assert real.shape == (300, chip_smoke.NUM_PERM)
+    index, sigs, src, dst, near = smoke.phase_index(real, n_rows=4096)
+    smoke.phase_serving(index, sigs, src, dst, near, n_queries=48)
+    assert set(smoke.qps) >= {"top_k k=10 scan", "query_batch 0.5 bands"}
+    smoke.phase_facade_parity(sigs, n_rows=2048, n_queries=24)
