@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving.
+"""Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving and
+LSH Ensemble containment serving.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -9,10 +10,10 @@ capability >= 9.0 (Hopper):
 Phases (any failed check raises and the script exits non-zero):
 
 1. environment: torch / CUDA versions, the card, its power limit;
-2. build: the four CUDA kernels (nvcc) and the host SHA1 module (g++);
-3. kernel parity: each kernel against its plain PyTorch version on the
-   same CUDA tensors, exact, at the main path's shapes and ragged edges,
-   timed with CUDA events;
+2. build: the CUDA kernels (nvcc) and the host SHA1 module (g++);
+3. kernel parity: each kernel (kernel 2 in its plain and its sizes mode)
+   against its plain PyTorch version on the same CUDA tensors, exact, at
+   the main paths' shapes and ragged edges, timed with CUDA events;
 4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
    docs x 200 SHA1 tokens), checked against the plain version and a host
    numpy evaluation of the reference formula;
@@ -22,7 +23,15 @@ Phases (any failed check raises and the script exits non-zero):
    threshold ``query_batch`` (bands, scan, and a scan that escalates past
    128 matches), then 1,000 removals and the queries again;
 7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one;
-8. launch counts of the four kernels during phases 4-6 (each must be > 0).
+8. launch counts of kernels 1-4 during phases 4-6 (each must be > 0);
+9. ensemble: 1,048,576 integer-token sets (lognormal sizes around 120,
+   Zipf(0.8) ids over 50,000) indexed by ``TorchMinHashLSHEnsemble.
+   index_tokens`` (threshold 0.8, 8 partitions), 1,024 subset queries by
+   scan, bands and auto, with the launch counts of kernels 1, 2 (sizes
+   mode) and 4 read around it (each must be > 0); then the scan's answer
+   for 64 queries against the plain version at full size, its truncation
+   count against exact match counts, and a small CUDA ensemble against a
+   ``device="cpu"`` one.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -32,6 +41,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,6 +63,11 @@ N_REMOVE = 1000
 N_NEAR = 300  # near-copies of one doc: a threshold scan with > 128 matches
 PARITY_ROWS = 65536
 PARITY_QUERIES = 256
+ENS_SETS = 1 << 20
+ENS_QUERIES = 1024
+ENS_PLAIN_QUERIES = 64  # scan answers held against the plain version
+ENS_PARITY_SETS = 8192
+ENS_THRESHOLD = 0.8
 
 KERNELS = [
     {
@@ -68,6 +83,13 @@ KERNELS = [
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:642",
     },
     {
+        "name": "containment_scan",
+        "module": "lsh_scan",
+        "counter": "launches_sizes",
+        "source": "datasketch_tpu_torch/csrc/lsh_scan.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:682",
+    },
+    {
         "name": "rerank",
         "module": "rerank",
         "source": "datasketch_tpu_torch/csrc/rerank.cu",
@@ -80,6 +102,8 @@ KERNELS = [
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:201",
     },
 ]
+LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix")
+ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
 
 
 class SmokeFailure(RuntimeError):
@@ -156,6 +180,16 @@ class Smoke:
                                  dtype=torch.int32)
         return torch.randint(-(1 << 31), 1 << 31, (n, p), generator=g,
                              device=self.device, dtype=torch.int32)
+
+    def lognormal_sizes(self, n: int, seed: int):
+        """int32[n] set sizes, lognormal around 120; every 17th is 0
+        (a padding row)."""
+        torch = self.torch
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        x = torch.empty(n, device=self.device).log_normal_(math.log(120), 0.5, generator=g)
+        x = x.to(torch.int32).clamp_min(1)
+        x[::17] = 0
+        return x
 
     def near_copies(self, rows, keep: float, seed: int):
         """Rows with a ``1 - keep`` share of slots replaced at random."""
@@ -244,6 +278,37 @@ class Smoke:
         for case, d, qq, k, nv, al, cut in cases:
             self.compare("topk_scan", case, k2.topk_scan(d, qq, k, nv, al, cut),
                          k2.topk_scan_plain(d, qq, k, nv, al, cut))
+
+        # kernel 2, sizes (containment) mode: the ensemble's scan
+        sizes = self.lognormal_sizes(n, 8)
+        keep = torch.rand(nq, generator=g, device=dev) * 0.7 + 0.3
+        q_sizes = (sizes[qidx].to(torch.float32) * keep).to(torch.int32).clamp_min(1)
+        for k in (16, 128):
+            args = (db, sizes, q, q_sizes, k, ENS_THRESHOLD)
+            self.compare("containment_scan", "N=%d Q=%d k=%d cutoff %.1f"
+                         % (n, nq, k, ENS_THRESHOLD),
+                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
+            ms = self.time_ms(lambda a=args: k2.containment_topk(*a))
+            log("  containment_scan k=%d: %.4f ms" % (k, ms))
+            if k == 16:  # the serving call's first k
+                self.record["containment_scan"]["ms"] = ms
+                self.record["containment_scan"]["plain_ms"] = self.time_ms(
+                    lambda a=args: k2.containment_topk_plain(*a), iters=1, warmup=0)
+        s2 = self.lognormal_sizes(n2, 9)
+        s2[:20000] = 120  # equal sizes over 2-valued rows: tied scores
+        s2[50000:50100] = 1 << 30
+        qs2 = torch.randint(1, 400, (nq2,), generator=g, device=dev, dtype=torch.int32)
+        qs2[:3] = torch.tensor([0, 1, 1 << 30], dtype=torch.int32)
+        cases = [
+            ("ties k=1 cutoff 0.0", halves, q_halves, 1, 0.0),
+            ("ties k=37 cutoff 1.0", halves, q_halves, 37, 1.0),
+            ("ties k=128 cutoff 0.5", halves, q_halves, 128, 0.5),
+            ("4-valued k=37 cutoff 0.8", ties, q_ties, 37, 0.8),
+        ]
+        for case, d, qq, k, cut in cases:
+            args = (d, s2, qq, qs2, k, cut)
+            self.compare("containment_scan", case + " ragged, sizes 0..2**30",
+                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
 
         # kernel 3: rerank with the candidate gather fused in
         k3 = self.kmod("rerank")
@@ -469,6 +534,151 @@ class Smoke:
             "scores, n_match and last_truncated (before and after 500 removals)"
             % (n_rows, n_queries))
 
+    # ---------------------------------------------------------- ensemble
+
+    def phase_ensemble_corpus(self, n_sets: int = ENS_SETS, n_queries: int = ENS_QUERIES,
+                              seed: int = 41):
+        """Token sets (host arrays, as a user passes them) and subset
+        queries: each query keeps a U(0.3, 1.0) share of the distinct ids
+        of one indexed set (``bench.py``'s ensemble protocol)."""
+        t0 = time.perf_counter()
+        docs = make_token_sets(self.torch, n_sets, self.device, seed)
+        rng = np.random.RandomState(7)
+        src = rng.choice(n_sets, n_queries, replace=False)
+        queries = []
+        for i in src:
+            s = np.unique(docs[i])
+            q = s[rng.rand(s.size) < rng.uniform(0.3, 1.0)]
+            queries.append(q if q.size else s[:1])
+        log("[ensemble] corpus: %d sets, %d ids in all, %d subset queries (%.1f s)"
+            % (n_sets, sum(map(len, docs)), n_queries, time.perf_counter() - t0))
+        return docs, queries, src
+
+    def phase_ensemble(self, docs, queries, src, escalates: bool = True):
+        """The containment main path through the public facade: build by
+        ``index_tokens``, then the query batch by scan, bands and auto.
+        ``escalates``: some query matches more than 16 sets, so the scan
+        reruns past its first k (true of the full-size corpus, whose
+        queries' match counts grow with the number of sets)."""
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash, TorchMinHashLSHEnsemble
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        index = TorchMinHashLSHEnsemble(threshold=ENS_THRESHOLD, num_perm=NUM_PERM,
+                                        num_part=8, bucket_cap=128, max_results=2048,
+                                        device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index_tokens(range(len(docs)), docs)
+        self.sync()
+        self.ens_build_s = time.perf_counter() - t0
+        log("[ensemble] index_tokens of %d sets: %.3f s; rs %s, N_pad %d, partition "
+            "rows %s, uppers %s" % (len(docs), self.ens_build_s, index.rs, index._n_pad,
+                                    index._n_valid.tolist(), [int(u) for u in index.uppers]))
+        tables = [index._sigs] + [t for pair in index._tables.values() for t in pair]
+        log("[ensemble] stacked signatures and band tables: %d B on the device"
+            % sum(t.numel() * t.element_size() for t in tables))
+        q_sigs = MinHash.bulk_signatures(queries, num_perm=NUM_PERM, hashfunc="device",
+                                         out="device", device=self.device)
+        q_sizes = np.array([q.size for q in queries])
+        batch = (q_sigs, q_sizes)
+        self.ens_qps, out = {}, {}
+        for method in ("scan", "bands", "auto"):
+            index.query_batch(batch, method=method)  # first call of the shape
+            best = 0.0
+            for _ in range(3):
+                self.sync()
+                t0 = time.perf_counter()
+                rows = index.query_batch(batch, method=method)
+                self.sync()
+                best = max(best, len(queries) / (time.perf_counter() - t0))
+            self.ens_qps[method] = best
+            rec = float(np.mean([int(s) in row for s, row in zip(src, rows)]))
+            out[method] = (rows, index.last_truncated, rec)
+            log("[ensemble] query_batch %-5s %10.1f q/s recall %.4f truncated %d "
+                "longest %d" % (method, best, rec, index.last_truncated, max(map(len, rows))))
+        check(out["scan"][2] >= 0.9, "ensemble scan recall %.4f < 0.9" % out["scan"][2])
+        check(max(map(len, out["scan"][0])) > 16 or not escalates,
+              "no scan query escalated past k = 16")
+        check(out["auto"][0] == out["scan"][0], "auto did not answer as the scan")
+        sub = index.query_batch((q_sigs[:ENS_PLAIN_QUERIES], q_sizes[:ENS_PLAIN_QUERIES]),
+                                method="scan")
+        check(sub == out["scan"][0][:ENS_PLAIN_QUERIES],
+              "the scan answers a sub-batch otherwise than the whole batch")
+        if cuda:
+            self.ens_peak = torch.cuda.max_memory_allocated()
+            log("[ensemble] peak device memory %.3f GiB" % (self.ens_peak / 2**30))
+        return index, q_sigs, q_sizes, out["scan"], sub
+
+    def phase_ensemble_checks(self, index, q_sigs, q_sizes, scan, sub) -> None:
+        """The scan's answers for the first queries against the plain
+        version at full size, and its truncation count against exact match
+        counts of the plain version."""
+        torch = self.torch
+        from datasketch_tpu_torch.kernels.lsh_scan import running_topk
+        from datasketch_tpu_torch.kernels.score import score_matrix_plain
+
+        sigs, sizes, keys, _ = index._scan_table()
+        n, max_out = sigs.shape[0], min(index.max_results, sigs.shape[0])
+        qs = torch.from_numpy(q_sizes.astype(np.int32)).to(self.device)
+
+        def plain(q, q_s, k):
+            return running_topk(q, sigs, k, n, None, ENS_THRESHOLD, score_matrix_plain,
+                                sizes=sizes, q_sizes=q_s)
+
+        n_match = plain(q_sigs, qs, 1)[2].long()
+        want = int((n_match - max_out).clamp_min(0).sum())
+        check(scan[1] == want, "scan last_truncated %d, exact counts give %d" % (scan[1], want))
+        m = ENS_PLAIN_QUERIES
+        ids = plain(q_sigs[:m], qs[:m], max_out)[0].cpu().numpy()
+        check(sub == [keys[row[row >= 0]].tolist() for row in ids],
+              "the scan's answers differ from the plain version's")
+        log("[ensemble] scan answers of %d queries equal the plain version's at N=%d; "
+            "last_truncated %d equals the exact count; match counts max %d, median %d"
+            % (len(sub), n, want, int(n_match.max()), int(n_match.median())))
+
+    def phase_ensemble_parity(self, n_sets: int = ENS_PARITY_SETS) -> None:
+        """A CUDA ensemble against a device='cpu' one on one small corpus."""
+        from datasketch_tpu_torch import MinHash, TorchMinHashLSHEnsemble
+
+        docs, queries, _ = self.phase_ensemble_corpus(n_sets, 128, seed=43)
+        sizes = np.array([q.size for q in queries])
+        pair = [TorchMinHashLSHEnsemble(threshold=ENS_THRESHOLD, num_part=8, device=d)
+                for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index_tokens(range(n_sets), docs)
+        batches = [(MinHash.bulk_signatures(queries, num_perm=NUM_PERM, hashfunc="device",
+                                            out="device", device=ix.device), sizes)
+                   for ix in pair]
+        for method in ("scan", "bands", "auto"):
+            got = [ix.query_batch(b, method=method) for ix, b in zip(pair, batches)]
+            if method == "bands":
+                got = [[set(r) for r in g] for g in got]
+            check(got[0] == got[1], "ensemble parity: %s differs" % method)
+            check(pair[0].last_truncated == pair[1].last_truncated,
+                  "ensemble parity: %s last_truncated differs" % method)
+        log("[ensemble parity] %d sets x 128 queries: CUDA and CPU ensembles agree "
+            "(scan, bands, auto)" % n_sets)
+
+
+def make_token_sets(torch, n_sets: int, device, seed: int, vocab: int = 50000,
+                    mean_size: int = 120):
+    """Integer-token documents drawn on ``device``: lognormal lengths
+    around ``mean_size`` (at least 8), Zipf(0.8) ids over ``vocab``
+    (``benchmarks/utils.py::generate_sets``' shape, without its clusters);
+    returned as host int32 arrays, one per document. Ids repeat within a
+    document, so a set's size is its distinct count."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lengths = torch.empty(n_sets, device=device, dtype=torch.float64)
+    lengths = lengths.log_normal_(math.log(mean_size), 0.5, generator=g).long().clamp_min(8)
+    w = torch.arange(1, vocab + 1, device=device, dtype=torch.float64) ** -0.8
+    cum = torch.cumsum(w / w.sum(), 0)
+    u = torch.rand(int(lengths.sum()), generator=g, device=device, dtype=torch.float64)
+    ids = torch.searchsorted(cum, u).clamp_max(vocab - 1).to(torch.int32).cpu().numpy()
+    return np.split(ids, np.cumsum(lengths.cpu().numpy())[:-1])
+
 
 def make_corpus(n_docs: int, seed: int = 42):
     """The bench corpus: 10-byte tokens from a 30,000-word vocabulary,
@@ -544,19 +754,48 @@ def main() -> int:
         log("[kernels] each kernel against its plain version on the card")
         smoke.phase_kernels()
         kmods = {k["name"]: smoke.kmod(k["name"]) for k in KERNELS}
-        for mod in kmods.values():
-            mod.launches = 0
+
+        def counts():
+            return {k["name"]: getattr(kmods[k["name"]], k.get("counter", "launches"))
+                    for k in KERNELS}
+
+        def zero_counts():
+            for k in KERNELS:
+                setattr(kmods[k["name"]], k.get("counter", "launches"), 0)
+
+        zero_counts()
         real = smoke.phase_signatures()
         index, sigs, src, dst, near = smoke.phase_index(real)
         smoke.phase_serving(index, sigs, src, dst, near)
         torch.cuda.synchronize()
-        launches = {name: mod.launches for name, mod in kmods.items()}
+        lsh_counts = counts()
         del index
         torch.cuda.empty_cache()
         smoke.phase_facade_parity(sigs)
-        log("[launches] main path (phases 4-6): %s" % json.dumps(launches))
-        for kname, count in launches.items():
-            check(count > 0, "kernel %s was not launched on the main path" % kname)
+        del sigs
+        log("[launches] LSH main path (phases 4-6): %s" % json.dumps(lsh_counts))
+        for kname in LSH_PATH:
+            check(lsh_counts[kname] > 0, "kernel %s was not launched on the LSH path" % kname)
+
+        docs, queries, qsrc = smoke.phase_ensemble_corpus()
+        zero_counts()
+        ens = smoke.phase_ensemble(docs, queries, qsrc)
+        torch.cuda.synchronize()
+        ens_counts = counts()
+        del docs, queries
+        smoke.phase_ensemble_checks(*ens)
+        del ens
+        torch.cuda.empty_cache()
+        smoke.phase_ensemble_parity()
+        log("[ensemble] %s: build %.3f s, q/s scan %.1f, bands %.1f, auto %.1f; peak "
+            "device memory %d B" % (nvidia_smi_line(), smoke.ens_build_s,
+                                    smoke.ens_qps["scan"], smoke.ens_qps["bands"],
+                                    smoke.ens_qps["auto"], smoke.ens_peak))
+        log("[launches] ensemble main path: %s" % json.dumps(ens_counts))
+        for kname in ENSEMBLE_PATH:
+            check(ens_counts[kname] > 0,
+                  "kernel %s was not launched on the ensemble path" % kname)
+        launches = {name: lsh_counts[name] + ens_counts[name] for name in lsh_counts}
         report = []
         for k in KERNELS:
             rec = smoke.record[k["name"]]

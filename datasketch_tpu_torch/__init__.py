@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH serving path.
+"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH and LSH Ensemble
+serving paths.
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -14,6 +15,7 @@ kernels compile with ``nvcc`` at first use on the card.
 """
 
 from datasketch_tpu_torch.models.minhash import MinHash
+from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
 
-__all__ = ["MinHash", "TorchMinHashLSH"]
+__all__ = ["MinHash", "TorchMinHashLSH", "TorchMinHashLSHEnsemble"]

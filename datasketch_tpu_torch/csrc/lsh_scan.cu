@@ -1,23 +1,34 @@
 // Kernel 2: fused exact-scan top-k with hit counting (k <= 128).
 //
 // Replaces datasketch_tpu/ops/pallas_kernels.py::_topk_scan_kernel /
-// topk_scan_pallas in its plain and alive-mask modes (the sizes mode is
-// still to be ported). Per query: the top-k (id, score) among valid db
-// rows whose count reaches `min_count`, in the total order (count desc,
-// id asc) -- the order lax.top_k gives over the TPU kernel's carry-then-
-// tile concat -- empty slots (-1, -1.0), plus the number of such rows.
-// Scores as in common.cuh.
+// topk_scan_pallas in all three of its modes: plain, alive-mask and sizes
+// (containment). Per query: the top-k (id, score) among valid db rows that
+// are hits, in the total order (score desc, id asc) -- the order lax.top_k
+// gives over the TPU kernel's carry-then-tile concat -- empty slots
+// (-1, -1.0), plus the number of hits.
 // A row is valid when row < n_valid and alive[row] != 0 (when a mask is
-// given). `min_count` is the least count whose f32 score f32(count) *
-// f32(1/P) reaches the caller's f32 cutoff, computed on the host, so the
+// given).
+//
+// Plain and mask modes: the score is the Jaccard estimate of common.cuh
+// and the carry ranks the integer count, which orders exactly like it. A
+// hit has count >= `min_count`, the least count whose f32 score f32(count)
+// * f32(1/P) reaches the caller's f32 cutoff, computed on the host, so the
 // test is exact.
+// Sizes mode (`sizes` given): the score is the containment estimate
+// c = j*(x+q) / ((1+j)*q) of the query (size q, at least 1) in the row
+// (exact size x) with j the Jaccard estimate; a row with x <= 0 is
+// padding. c depends on the row's size, so no integer stands in for it:
+// the hit test is the f32 compare c >= cutoff, and the carry ranks the
+// bits of c as an int (c >= 0, and non-negative floats order like their
+// bit patterns), so the same machinery serves both modes.
 //
 // Bound on the H100: integer issue in the compare (~2*Q*N*P ops: 2.7e11
 // at Q = 1024, N = 2**20, P = 128) and, second, the db stream: each block
 // of 32 queries reads its share of the N*4P-byte table once, so the table
-// crosses the memory bus Q/32 times. The TPU grid ran its db axis in
-// order and carried the top-k in VMEM; here the db axis is also split
-// over gridDim.y so that Q = 50..1024 still fills 132 SMs. Each
+// crosses the memory bus Q/32 times. The containment score adds ~5 f32 ops
+// per (query, row) pair, small beside the P-slot compare. The TPU grid ran
+// its db axis in order and carried the top-k in VMEM; here the db axis is
+// also split over gridDim.y so that Q = 50..1024 still fills 132 SMs. Each
 // (query block, split) keeps a sorted per-query top-k in shared memory;
 // a tile's rows go to a per-query candidate buffer only when they beat
 // the current k-th best (most tiles add nothing, like the TPU kernel's
@@ -35,15 +46,29 @@ using namespace dst;
 
 constexpr int kMaxK = 128;
 
+// Ranking keys: the count (plain and mask modes) or the bits of c (sizes
+// mode), both >= 0; -1 marks an empty slot.
 __device__ __forceinline__ bool better(int c1, int id1, int c2, int id2) {
   return c1 > c2 || (c1 == c2 && id1 < id2);
 }
 
+// Containment estimate in the JAX package's f32 op order: j = f32(count) *
+// f32(1/P), then (j * (x + q)) / ((1 + j) * q). The _rn intrinsics are
+// never contracted into an FMA (nvcc's default --fmad=true would fuse
+// `count * inv_p + 1`, which rounds once where JAX rounds twice).
+__device__ __forceinline__ float containment(int count, float inv_p, float xf,
+                                             float qf) {
+  const float j = __fmul_rn(static_cast<float>(count), inv_p);
+  return __fdiv_rn(__fmul_rn(j, __fadd_rn(xf, qf)),
+                   __fmul_rn(__fadd_rn(1.0f, j), qf));
+}
+
 __host__ __device__ inline size_t scan_smem_ints(int p, int k) {
   return static_cast<size_t>(kQB + kRB) * row_stride(p)  // q and db tiles
-         + 2 * kQB * k                                   // carry (count, id)
+         + 2 * kQB * k                                   // carry (key, id)
          + 2 * kQB * kRB                                 // candidates
-         + 4 * kQB;                                      // n_buf, n_carry, thr, hits
+         + 4 * kQB                                       // n_buf, n_carry, thr, hits
+         + kRB + kQB;                                    // row sizes, query sizes
 }
 
 // Merge query qi's candidate buffer into its sorted carry (one warp).
@@ -105,10 +130,12 @@ __device__ void merge_candidates(int* cc, int* ci, const int* bc,
 
 __global__ void __launch_bounds__(kThreads)
 topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
-                 const unsigned char* __restrict__ alive, int nq,
-                 long long n, int p, long long n_valid, int min_count, int k,
-                 long long rows_per_split, int* __restrict__ part_cnt,
-                 int* __restrict__ part_id, int* __restrict__ hit_count) {
+                 const unsigned char* __restrict__ alive,
+                 const int* __restrict__ sizes, const int* __restrict__ q_sizes,
+                 int nq, long long n, int p, long long n_valid, int min_count,
+                 float cutoff, int k, long long rows_per_split,
+                 int* __restrict__ part_cnt, int* __restrict__ part_id,
+                 int* __restrict__ hit_count) {
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   const int stride = row_stride(p);
@@ -122,6 +149,10 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
   int* n_carry = n_buf + kQB;
   int* thr = n_carry + kQB;
   int* hits_s = thr + kQB;
+  int* x_s = hits_s + kQB;                             // the tile's row sizes
+  float* qf_s = reinterpret_cast<float*>(x_s + kRB);   // f32 query sizes, >= 1
+  const bool use_sizes = sizes != nullptr;
+  const float inv_p = 1.0f / static_cast<float>(p);
 
   const int q0 = blockIdx.x * kQB;
   const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
@@ -132,6 +163,8 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
     n_carry[i] = 0;
     thr[i] = q0 + i < nq ? -1 : INT_MAX;  // padding queries take nothing
     hits_s[i] = 0;
+    qf_s[i] = use_sizes && q0 + i < nq
+                  ? static_cast<float>(max(q_sizes[q0 + i], 1)) : 1.0f;
   }
   const int r = threadIdx.x % kRB;
   const int g = threadIdx.x / kRB;
@@ -144,22 +177,38 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
   for (long long row0 = r_begin; row0 < r_end; row0 += kRB) {
     __syncthreads();  // the previous tile's merge is done
     stage_rows(db_s, db, row0, kRB, r_end, p, stride, 1);
+    if (use_sizes) {
+      for (int i = threadIdx.x; i < kRB; i += blockDim.x) {
+        x_s[i] = row0 + i < r_end ? sizes[row0 + i] : 0;
+      }
+    }
     __syncthreads();
     int counts[kQPT];
     tile_counts(q_s, db_s, stride, r, g, counts);
     const long long row = row0 + r;
-    const bool valid = row < r_end && row < n_valid &&
+    const int x = use_sizes ? x_s[r] : 1;
+    const bool valid = row < r_end && row < n_valid && x > 0 &&
                        (alive == nullptr || alive[row] != 0);
     if (valid) {
+      const float xf = static_cast<float>(x);
 #pragma unroll
       for (int i = 0; i < kQPT; ++i) {
         const int qi = g * kQPT + i;
-        const int c = counts[i];
-        if (q0 + qi < nq && c >= min_count) {
+        int key;
+        bool hit;
+        if (use_sizes) {
+          const float c = containment(counts[i], inv_p, xf, qf_s[qi]);
+          key = __float_as_int(c);
+          hit = c >= cutoff;
+        } else {
+          key = counts[i];
+          hit = key >= min_count;
+        }
+        if (q0 + qi < nq && hit) {
           ++hits[i];
-          if (c > thr[qi]) {
+          if (key > thr[qi]) {
             const int pos = atomicAdd(&n_buf[qi], 1);
-            buf_c[qi * kRB + pos] = c;
+            buf_c[qi * kRB + pos] = key;
             buf_i[qi * kRB + pos] = static_cast<int>(row);
           }
         }
@@ -194,10 +243,12 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
 
 // Merge the n_split sorted partial lists of each query: an entry's rank is
 // its index in its own list plus, per other list, how many entries there
-// beat it (binary search: better entries form a prefix).
+// beat it (binary search: better entries form a prefix). The score written
+// is the count's f32(count) * f32(1/P), or in sizes mode (`key_is_score`)
+// the key's own float bits.
 __global__ void topk_merge_kernel(const int* __restrict__ part_cnt,
                                   const int* __restrict__ part_id, int nq,
-                                  int n_split, int k, int p,
+                                  int n_split, int k, int p, int key_is_score,
                                   int* __restrict__ out_id,
                                   float* __restrict__ out_sc) {
   const int qi = blockIdx.x;
@@ -227,17 +278,26 @@ __global__ void topk_merge_kernel(const int* __restrict__ part_cnt,
     }
     if (rank < k) {
       out_id[static_cast<long long>(qi) * k + rank] = id;
-      out_sc[static_cast<long long>(qi) * k + rank] = static_cast<float>(c) * inv_p;
+      out_sc[static_cast<long long>(qi) * k + rank] =
+          key_is_score ? __int_as_float(c) : static_cast<float>(c) * inv_p;
     }
   }
 }
 
 }  // namespace
 
+// `alive`, `sizes` and `q_sizes` may be null; `sizes` and `q_sizes` are
+// given together and select the sizes mode (then `cutoff` is the f32 hit
+// test and `min_count` is unused).
 extern "C" int ds_topk_scan(const void* db, const void* q, const void* alive,
-                            int nq, long long n, int p, long long n_valid,
-                            int min_count, int k, int n_split, void* part_cnt,
-                            void* part_id, void* hit_count, void* stream) {
+                            const void* sizes, const void* q_sizes, int nq,
+                            long long n, int p, long long n_valid,
+                            int min_count, float cutoff, int k, int n_split,
+                            void* part_cnt, void* part_id, void* hit_count,
+                            void* stream) {
+  if ((sizes == nullptr) != (q_sizes == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (nq > 0 && n_split > 0) {
     const size_t smem = sizeof(int) * scan_smem_ints(p, k);
@@ -251,20 +311,21 @@ extern "C" int ds_topk_scan(const void* db, const void* q, const void* alive,
                     static_cast<unsigned>(n_split));
     topk_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(db), static_cast<const int*>(q),
-        static_cast<const unsigned char*>(alive), nq, n, p, n_valid,
-        min_count, k, rows, static_cast<int*>(part_cnt),
+        static_cast<const unsigned char*>(alive),
+        static_cast<const int*>(sizes), static_cast<const int*>(q_sizes), nq,
+        n, p, n_valid, min_count, cutoff, k, rows, static_cast<int*>(part_cnt),
         static_cast<int*>(part_id), static_cast<int*>(hit_count));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ds_topk_merge(const void* part_cnt, const void* part_id, int nq,
-                             int n_split, int k, int p, void* out_id,
-                             void* out_sc, void* stream) {
+                             int n_split, int k, int p, int key_is_score,
+                             void* out_id, void* out_sc, void* stream) {
   if (nq > 0) {
     topk_merge_kernel<<<nq, 128, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(part_cnt), static_cast<const int*>(part_id),
-        nq, n_split, k, p, static_cast<int*>(out_id),
+        nq, n_split, k, p, key_is_score, static_cast<int*>(out_id),
         static_cast<float*>(out_sc));
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,8 +8,8 @@ named by a hash of the sources and flags, so a fresh checkout builds
 everything from the repo's sources and a stale build is never loaded.
 
 No ``--use_fast_math``: scores are ``f32(count) * f32(1/P)`` with the
-reciprocal correctly rounded, bit for bit the reference's; fast math
-would approximate the reciprocal.
+reciprocal correctly rounded, bit for bit the reference's, and the
+containment score's division is IEEE; fast math would approximate both.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*``, launches on that stream (the caller passes torch's current
@@ -46,14 +46,15 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t).
 _SIGNATURES = {
     "ds_minhash_sign": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "ds_score_matrix": [_P, _P, _I, _L, _I, _P, _P],
     "ds_rerank": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
-    "ds_topk_scan": [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P, _P, _P, _P],
-    "ds_topk_merge": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ds_topk_scan": [_P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _F, _I, _I, _P, _P, _P, _P],
+    "ds_topk_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

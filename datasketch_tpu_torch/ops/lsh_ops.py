@@ -14,7 +14,9 @@ facade calls. Conventions:
 
 Kernels: the rerank is kernel 3 (the ``db_sigs[cand_ids]`` gather fused
 in), the scan is kernel 2 for k <= 128 and a running top-k over kernel 4
-(the score matrix) above that, as in the JAX package.
+(the score matrix) above that, as in the JAX package; the containment
+scan is kernel 2's sizes mode for k <= 128 and the same running top-k
+over kernel 4 above that.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ __all__ = [
     "query_fused",
     "topk_fused",
     "topk_scan",
+    "query_bands_masked",
+    "build_tables_stacked",
+    "query_stacked_masked",
+    "containment_scan",
 ]
 
 _FP_SEED = 0x9E3779B9
@@ -102,6 +108,68 @@ def query_tables(sorted_fp, sorted_ids, q_fps, cap: int = 128):
     ids = torch.where(valid, ids.reshape(b, nq, cap), -1)
     trunc = (end - start - cap).clamp_min(0).sum()
     return ids.permute(1, 0, 2).contiguous(), trunc
+
+
+def query_bands_masked(sorted_fp, sorted_ids, q_sigs, b: int, r: int,
+                       cap: int, n_bands):
+    """Probe all ``b`` bands, keep only the first ``n_bands``.
+
+    ``n_bands`` is an int or an int tensor broadcasting against [Q, 1, 1].
+    ``truncated`` counts cap overflow over all b bands, as the JAX package
+    does (0 still means the kept results are exact).
+
+    Returns (flat ids int32[Q, b*cap], truncated int64 scalar tensor).
+    """
+    ids, trunc = query_tables(sorted_fp, sorted_ids, band_fingerprints(q_sigs, b, r),
+                              cap=cap)
+    keep = torch.arange(b, device=ids.device)[None, :, None] < n_bands
+    ids = torch.where(keep, ids, -1)
+    return ids.reshape(q_sigs.shape[0], -1), trunc
+
+
+def build_tables_stacked(sigs_stack: torch.Tensor, b: int, r: int):
+    """Band tables of a stack of equally padded sub-indexes in one sort:
+    int32[parts, N_pad, P] -> (sorted_fp int64, sorted_ids int32), each
+    [parts, b, N_pad], ids local to their partition."""
+    parts, n_pad, p = sigs_stack.shape
+    fps = band_fingerprints(sigs_stack.reshape(parts * n_pad, p), b, r)
+    fps = fps.reshape(parts, n_pad, b).transpose(1, 2).contiguous()
+    sorted_fp, order = torch.sort(fps, dim=2, stable=True)
+    return sorted_fp, order.to(torch.int32)
+
+
+def query_stacked_masked(sorted_fp, sorted_ids, q_sigs, b: int, r: int,
+                         cap: int, b_keep, n_valid):
+    """Probe every partition of a stacked r-index with per-(query,
+    partition) band counts.
+
+    The partitions are flattened into one [parts * b, N_pad] table, so one
+    ``searchsorted`` serves them all.
+
+    Args:
+        sorted_fp / sorted_ids: [parts, b, N_pad] stacked tables.
+        q_sigs: int32[Q, P] queries.
+        b_keep: int32[Q, parts] leading bands kept per (query, partition);
+            0 disables the pair.
+        n_valid: int32[parts] real row count per partition.
+
+    Returns:
+        (flat global ids int32[Q, parts*b*cap], global id = part * N_pad +
+        local, -1 where masked; truncated int64 scalar tensor, cap
+        overflow over all bands of all partitions).
+    """
+    parts, _, n_pad = sorted_fp.shape
+    nq = q_sigs.shape[0]
+    q_fps = band_fingerprints(q_sigs, b, r).repeat(1, parts)  # [Q, parts*b]
+    ids, trunc = query_tables(sorted_fp.reshape(parts * b, n_pad),
+                              sorted_ids.reshape(parts * b, n_pad), q_fps, cap=cap)
+    ids = ids.reshape(nq, parts, b, cap)
+    band = torch.arange(b, device=ids.device)[None, None, :, None]
+    keep = band < b_keep[:, :, None, None]
+    valid = keep & (ids >= 0) & (ids < n_valid[None, :, None, None])
+    off = torch.arange(parts, device=ids.device, dtype=torch.int32) * n_pad
+    ids = torch.where(valid, ids + off[None, :, None, None], -1)
+    return ids.reshape(nq, -1), trunc
 
 
 def rerank_jaccard(db_sigs, q_sigs, cand_ids):
@@ -260,3 +328,33 @@ def topk_scan(db_sigs, q_sigs, k: int, n_valid=None, alive=None,
     if count_ge is None:
         return ids, sc
     return ids, sc, cnt
+
+
+def containment_scan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k: int,
+                     tile: int = 8192):
+    """Exact containment-threshold scan: score every stored signature.
+
+    The containment of query A (size q) in stored set B (size x) is
+    estimated from the MinHash Jaccard estimate j and the exact sizes as
+    ``c = j * (x + q) / ((1 + j) * q)``. k <= 128 runs kernel 2's sizes
+    mode; larger k a running top-k over ``tile``-row score matrices from
+    kernel 4.
+
+    Args:
+        db_sigs: int32[N, P]; db_sizes: int32[N], <= 0 marks padding rows.
+        q_sigs: int32[Q, P]; q_sizes: int32[Q] query set sizes.
+        cutoff: containment threshold (f32 compare).
+        k: results per query (top-k by estimated containment).
+
+    Returns:
+        (ids int32[Q, k], containment f32[Q, k], n_match int32[Q]); slots
+        below the cutoff are -1 / -1.0, and ``n_match`` counts every row
+        >= cutoff, so truncation (n_match > k) is visible to the caller.
+    """
+    args = (db_sigs.contiguous(), db_sizes.to(torch.int32).contiguous(),
+            q_sigs.contiguous(), q_sizes.to(torch.int32).contiguous())
+    if k <= lsh_scan.MAX_K:
+        return lsh_scan.containment_topk(*args, k, cutoff)
+    db, sizes, q, qs = args
+    return lsh_scan.running_topk(q, db, k, db.shape[0], None, cutoff,
+                                 score.score_matrix, tile, sizes=sizes, q_sizes=qs)

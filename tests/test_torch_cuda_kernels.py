@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip where no card of capability >= 9.0 is present.
 This file imports no JAX, so on a machine with the card and no JAX it runs
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from datasketch_tpu_torch import TorchMinHashLSH
+from datasketch_tpu_torch import MinHash, TorchMinHashLSH, TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
@@ -80,6 +80,41 @@ def test_topk_scan_kernel_matches_plain(dev, p, k, cutoff, masked):
         assert torch.equal(x, y)
 
 
+def _sizes(dev, n, seed, lo=1, hi=400):
+    return torch.randint(lo, hi, (n,), generator=_gen(dev, seed), device=dev,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("p", [66, 128])
+@pytest.mark.parametrize("k,cutoff", [(1, 0.8), (37, 0.0), (128, 0.5), (16, 1.0)])
+def test_containment_kernel_matches_plain(dev, p, k, cutoff):
+    """Sizes mode: ragged N and Q, padding rows (size 0), query sizes 0
+    and 1, sizes up to 2**30, and a tie block (2-valued signatures with
+    equal sizes, so scores tie)."""
+    n, nq = 20011, 45
+    db = _sigs(dev, n, p, 11, values=3)
+    db[:3000] = _sigs(dev, 3000, p, 12, values=2)
+    sizes = _sizes(dev, n, 13)
+    sizes[:3000] = 120
+    sizes[::17] = 0
+    sizes[5000:5100] = 1 << 30
+    q = torch.cat([db[:20], _sigs(dev, nq - 20, p, 14, values=3)])
+    q_sizes = _sizes(dev, nq, 15)
+    q_sizes[:3] = torch.tensor([0, 1, 1 << 30], dtype=torch.int32)
+    got = _launched_sizes(lambda: lsh_scan.containment_topk(db, sizes, q, q_sizes, k, cutoff))
+    want = lsh_scan.containment_topk_plain(db, sizes, q, q_sizes, k, cutoff)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def _launched_sizes(fn):
+    before = (lsh_scan.launches, lsh_scan.launches_sizes)
+    out = fn()
+    torch.cuda.synchronize()
+    assert (lsh_scan.launches, lsh_scan.launches_sizes) == (before[0], before[1] + 1)
+    return out
+
+
 def test_rerank_kernel_matches_plain(dev):
     db = _sigs(dev, 5000, 128, 4, values=4)
     q = _sigs(dev, 33, 128, 5, values=4)
@@ -116,3 +151,26 @@ def test_cuda_index_matches_cpu_index(dev):
         assert got[0] == got[1]
         got = [ix.query_batch(queries, return_scores=True, method=method) for ix in pair]
         assert got[0] == got[1]
+
+
+def test_cuda_ensemble_matches_cpu_ensemble(dev):
+    rng = np.random.RandomState(21)
+    docs = [np.unique(rng.zipf(1.3, size=rng.randint(20, 200)) % 3000) for _ in range(2000)]
+    keep = [d[rng.rand(d.size) < rng.uniform(0.3, 1.0)] for d in docs[:64]]
+    queries = [d if d.size else docs[i][:1] for i, d in enumerate(keep)]
+    pair = [TorchMinHashLSHEnsemble(threshold=0.8, num_part=8, device=d) for d in (dev, "cpu")]
+    for ix in pair:
+        ix.index_tokens(range(len(docs)), docs)
+    q_sigs = [_token_sigs(ix, queries) for ix in pair]
+    sizes = [d.size for d in queries]
+    for method in ("scan", "bands", "auto"):
+        got = [ix.query_batch((qs, sizes), method=method) for ix, qs in zip(pair, q_sigs)]
+        if method == "bands":
+            got = [[set(r) for r in g] for g in got]
+        assert got[0] == got[1]
+        assert pair[0].last_truncated == pair[1].last_truncated
+
+
+def _token_sigs(ix, docs):
+    return MinHash.bulk_signatures(docs, num_perm=ix.h, hashfunc="device", out="device",
+                                   device=ix.device)

@@ -9,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+from datasketch_tpu_torch import MinHash, TorchMinHashLSH, TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.device import resolve_device
 from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
 
@@ -22,9 +22,10 @@ def test_import_loads_no_jax_and_no_cuda_context():
     code = "\n".join([
         "import sys, torch",
         "import datasketch_tpu_torch",
-        "from datasketch_tpu_torch import native, hashfunc, device",
+        "from datasketch_tpu_torch import native, hashfunc, device, persist",
         "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
+        "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
         "from datasketch_tpu_torch.kernels import build, lsh_scan, minhash_sign, rerank, score",
         "from datasketch_tpu_torch.utils import profiling",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
@@ -47,6 +48,8 @@ def test_cuda_without_a_card_raises():
         TorchMinHashLSH(threshold=0.5, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinHash.bulk_signatures([[b"a", b"b"]], device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchMinHashLSHEnsemble(threshold=0.8, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -64,7 +67,8 @@ def _meta(shape, dtype=torch.int32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "rerank", "score"])
+@pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "containment_topk",
+                                  "rerank", "score"])
 def test_wrapper_on_other_device_raises(name):
     """A tensor that is neither on the CPU nor on a card never takes the
     plain version (which would happily run on 'meta')."""
@@ -73,13 +77,15 @@ def test_wrapper_on_other_device_raises(name):
             _meta((10,)), _meta((2,), torch.int64), _meta((2,)),
             _meta((128,), torch.int64), _meta((128,), torch.int64)),
         "topk_scan": lambda: lsh_scan.topk_scan(_meta((64, 128)), _meta((3, 128)), 5, 64),
+        "containment_topk": lambda: lsh_scan.containment_topk(
+            _meta((64, 128)), _meta((64,)), _meta((3, 128)), _meta((3,)), 5, 0.8),
         "rerank": lambda: rerank.rerank_scores(_meta((64, 128)), _meta((3, 128)),
                                                _meta((3, 7))),
         "score": lambda: score.score_matrix(_meta((3, 128)), _meta((64, 128))),
     }
-    mod = {"minhash_sign": minhash_sign, "topk_scan": lsh_scan, "rerank": rerank,
-           "score": score}[name]
-    before = mod.launches
+    counters = (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
+                rerank.launches, score.launches)
     with pytest.raises(ValueError, match="CUDA device"):
         calls[name]()
-    assert mod.launches == before
+    assert (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
+            rerank.launches, score.launches) == counters

@@ -20,3 +20,12 @@ def test_smoke_main_path_phases_on_cpu():
     smoke.phase_serving(index, sigs, src, dst, near, n_queries=48)
     assert set(smoke.qps) >= {"top_k k=10 scan", "query_batch 0.5 bands"}
     smoke.phase_facade_parity(sigs, n_rows=2048, n_queries=24)
+
+
+def test_smoke_ensemble_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    docs, queries, src = smoke.phase_ensemble_corpus(n_sets=2000, n_queries=40)
+    ens = smoke.phase_ensemble(docs, queries, src, escalates=False)
+    assert set(smoke.ens_qps) == {"scan", "bands", "auto"}
+    smoke.phase_ensemble_checks(*ens)
+    smoke.phase_ensemble_parity(n_sets=1000)
