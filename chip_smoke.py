@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving and
-LSH Ensemble containment serving.
+"""Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving,
+LSH Ensemble containment serving, and weighted MinHash (CWS) serving.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -13,7 +13,10 @@ Phases (any failed check raises and the script exits non-zero):
 2. build: the CUDA kernels (nvcc) and the host SHA1 module (g++);
 3. kernel parity: each kernel (kernel 2 in its plain and its sizes mode)
    against its plain PyTorch version on the same CUDA tensors, exact, at
-   the main paths' shapes and ragged edges, timed with CUDA events;
+   the main paths' shapes and ragged edges, timed with CUDA events, with
+   each timed call's bound (bytes over 3.35 TB/s or operations over 67
+   TFLOP/s, the larger) and, where one PyTorch call computes the same
+   function, that call's time;
 4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
    docs x 200 SHA1 tokens), checked against the plain version and a host
    numpy evaluation of the reference formula;
@@ -31,7 +34,18 @@ Phases (any failed check raises and the script exits non-zero):
    mode) and 4 read around it (each must be > 0); then the scan's answer
    for 64 queries against the plain version at full size, its truncation
    count against exact match counts, and a small CUDA ensemble against a
-   ``device="cpu"`` one.
+   ``device="cpu"`` one;
+10. weighted-1m: 1,048,576 CSR rows at dim 10,000 (about 2 % dense,
+    ``bench.py::bench_cws``'s law, drawn on the card) sketched by
+    ``WeightedMinHashGenerator.minhash_many`` (kernel 7; 1,024 sampled rows
+    against a ``device="cpu"`` generator, and the first 16,384 rows
+    densified through kernel 6 against the CSR result), indexed in a
+    ``TorchMinHashLSH``, and 1,024 perturbed-row queries served by
+    ``top_k`` (scan, bands) and threshold ``query_batch`` (bands), with the
+    launch counts of kernels 6, 7, 2 and 3 read around it (each must be
+    > 0); then ``kt_slots`` on the card against the host mix on 1M pairs,
+    and an 8,192-set CUDA ensemble built from (k, t) batches against a
+    ``device="cpu"`` one.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -68,6 +82,19 @@ ENS_QUERIES = 1024
 ENS_PLAIN_QUERIES = 64  # scan answers held against the plain version
 ENS_PARITY_SETS = 8192
 ENS_THRESHOLD = 0.8
+W_ROWS = 1 << 20
+W_DIM = 10000
+W_SAMPLES = 128
+W_QUERIES = 1024
+W_TOP_K = 5
+W_CPU_ROWS = 1024  # rows held against a device="cpu" generator
+W_DENSE_ROWS = 16384  # rows densified through kernel 6
+W_ENS_SETS = 8192
+W_SLOT_PAIRS = 1 << 20
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 KERNELS = [
     {
@@ -101,9 +128,23 @@ KERNELS = [
         "source": "datasketch_tpu_torch/csrc/score.cu",
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:201",
     },
+    {
+        "name": "cws_dense",
+        "module": "cws",
+        "source": "datasketch_tpu_torch/csrc/cws.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:262",
+    },
+    {
+        "name": "cws_sparse",
+        "module": "cws",
+        "counter": "launches_sparse",
+        "source": "datasketch_tpu_torch/csrc/cws.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:366",
+    },
 ]
 LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix")
 ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
+WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
 
 
 class SmokeFailure(RuntimeError):
@@ -130,7 +171,8 @@ class Smoke:
     def __init__(self, torch, device: str = "cuda"):
         self.torch = torch
         self.device = torch.device(device)
-        self.record = {k["name"]: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+        self.record = {k["name"]: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                                   "bound_ms": None, "bound_by": None, "library_ms": None}
                        for k in KERNELS}
 
     # ----------------------------------------------------------- helpers
@@ -141,15 +183,30 @@ class Smoke:
         spec = next(k for k in KERNELS if k["name"] == name)
         return importlib.import_module("datasketch_tpu_torch.kernels." + spec["module"])
 
-    def time_ms(self, fn, iters: int = 5, warmup: int = 1) -> float:
+    def time_ms(self, fn, iters: int = 5, warmup: int = 1):
+        """Mean ms per call from CUDA events; None (not measured) off the
+        card, where the phases only rehearse."""
         from datasketch_tpu_torch.utils.profiling import cuda_time_ms
 
+        if self.device.type != "cuda":
+            return None
         return cuda_time_ms(fn, warmup=warmup, iters=iters)
 
     def sync(self) -> None:
         from datasketch_tpu_torch.utils.profiling import device_sync
 
         device_sync(self.device)
+
+    def bound(self, name: str, ops: float, nbytes: float) -> None:
+        """Record the least time the card could take for a timed call:
+        the larger of ``ops`` over the f32 peak and ``nbytes`` (each input
+        read once, each output written once) over the memory rate."""
+        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        rec = self.record[name]
+        rec["bound_ms"] = max(t_ops, t_bytes)
+        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        log("  %-13s bound %.4f ms (%.3e ops, %.3e bytes), kernel %s ms, plain %s ms"
+            % (name, rec["bound_ms"], ops, nbytes, rec["ms"], rec["plain_ms"]))
 
     def compare(self, name: str, case: str, got, want) -> None:
         """Exact equality of kernel and plain outputs (tuples allowed)."""
@@ -239,6 +296,11 @@ class Smoke:
         self.record["minhash_sign"]["ms"] = self.time_ms(lambda: k1.minhash_sign(*args))
         self.record["minhash_sign"]["plain_ms"] = self.time_ms(
             lambda: k1.minhash_sign_plain(*args), iters=1)
+        n_tok = n_docs * TOKENS_PER_DOC
+        # per (token, permutation): the 64-bit multiply and add, the
+        # Mersenne fold (and, shift, add, compare-subtract), the mask, the min
+        self.bound("minhash_sign", 8.0 * n_tok * NUM_PERM,
+                   4 * n_tok + 12 * n_docs + 16 * NUM_PERM + 4 * n_docs * NUM_PERM)
         lens = torch.randint(0, 300, (1001,), generator=g, device=dev, dtype=torch.int32)
         lens[:10] = 0
         lens[500] = 2500  # longer than the kernel's token tile
@@ -263,6 +325,9 @@ class Smoke:
         self.record["topk_scan"]["ms"] = self.time_ms(lambda: k2.topk_scan(*args))
         self.record["topk_scan"]["plain_ms"] = self.time_ms(
             lambda: k2.topk_scan_plain(*args, None, 0.0), iters=1, warmup=0)
+        # per (query, row, slot): one compare and one add
+        self.bound("topk_scan", 2.0 * nq * n * NUM_PERM,
+                   4 * (n + nq) * NUM_PERM + nq * (8 * TOP_K + 4))
         n2, nq2 = 100003, 77
         ties = self.rand_sigs(n2, NUM_PERM, 3, values=4)
         halves = self.rand_sigs(n2, NUM_PERM, 4, values=2)
@@ -294,6 +359,10 @@ class Smoke:
                 self.record["containment_scan"]["ms"] = ms
                 self.record["containment_scan"]["plain_ms"] = self.time_ms(
                     lambda a=args: k2.containment_topk_plain(*a), iters=1, warmup=0)
+                # the slot counts, and per (query, row) the containment
+                # score's five f32 operations and its compare
+                self.bound("containment_scan", 2.0 * nq * n * NUM_PERM + 6.0 * nq * n,
+                           4 * (n + nq) * (NUM_PERM + 1) + nq * (8 * k + 4))
         s2 = self.lognormal_sizes(n2, 9)
         s2[:20000] = 120  # equal sizes over 2-valued rows: tied scores
         s2[50000:50100] = 1 << 30
@@ -320,6 +389,11 @@ class Smoke:
         self.record["rerank"]["ms"] = self.time_ms(lambda: k3.rerank_scores(db, q, cand))
         self.record["rerank"]["plain_ms"] = self.time_ms(
             lambda: k3.rerank_scores_plain(db, q, cand), iters=1)
+        live = cand[cand >= 0]
+        # per live (query, candidate, slot): one compare and one add; the
+        # table rows read are the distinct candidates
+        self.bound("rerank", 2.0 * live.numel() * NUM_PERM,
+                   4 * (int(torch.unique(live).numel()) + nq) * NUM_PERM + 8 * cand.numel())
         rc = torch.randint(-1, n2, (5, 70), generator=g, device=dev, dtype=torch.int32)
         rc[2] = -1
         self.compare("rerank", "Q=5 C=70 ties, an all -1 row",
@@ -334,6 +408,18 @@ class Smoke:
         self.record["score_matrix"]["ms"] = self.time_ms(lambda: k4.score_matrix(q, tile))
         self.record["score_matrix"]["plain_ms"] = self.time_ms(
             lambda: k4.score_matrix_plain(q, tile), iters=1)
+        t = tile.shape[0]
+        self.bound("score_matrix", 2.0 * nq * t * NUM_PERM, 4 * (nq + t) * NUM_PERM + 4 * nq * t)
+        # one PyTorch call with the same function: the Hamming distance
+        # (cdist, p = 0) counts the differing slots, P minus the equal ones
+        qd, td = q.double(), tile.double()
+        dist = torch.cdist(qd, td, p=0)
+        same = (NUM_PERM - dist).float() * (1.0 / NUM_PERM) == k4.score_matrix(q, tile)
+        check(bool(same.all()), "cdist(p=0) does not give the score matrix")
+        self.record["score_matrix"]["library_ms"] = self.time_ms(
+            lambda: torch.cdist(qd, td, p=0))
+        log("  score_matrix  torch.cdist(p=0) on f64 copies: %s ms"
+            % self.record["score_matrix"]["library_ms"])
         self.compare("score_matrix", "Q=13 T=1000 ties",
                      k4.score_matrix(q_ties[:13], ties[:1000]),
                      k4.score_matrix_plain(q_ties[:13], ties[:1000]))
@@ -345,6 +431,68 @@ class Smoke:
             k2.running_topk(q_halves, halves, BIG_K, n2, alive, 0.5,
                             k4.score_matrix_plain, 8192),
         )
+
+    def phase_kernels_cws(self, n_rows: int = W_ROWS, dense_rows: int = W_DENSE_ROWS,
+                          edge_rows: int = 257) -> None:
+        """Kernels 6 and 7 against their plain versions: kernel 7 on the
+        weighted path's whole CSR batch, kernel 6 on its densified head in
+        the generator's chunks (and equal to kernel 7 there), then the
+        ragged edges."""
+        torch = self.torch
+        from datasketch_tpu_torch import WeightedMinHashGenerator
+
+        kc = self.kmod("cws_sparse")
+        dev = self.device
+        gen = WeightedMinHashGenerator(W_DIM, W_SAMPLES, seed=1, device=dev)
+        tables = gen.params_t()
+        vals, idx, indptr = make_weighted_rows(torch, n_rows, W_DIM, dev, seed=17)
+        args = (vals, idx, indptr, *tables)
+        self.compare("cws_sparse", "%d CSR rows, D %d, S %d, nnz %d"
+                     % (n_rows, W_DIM, W_SAMPLES, vals.numel()),
+                     kc.cws_sparse(*args), kc.cws_sparse_plain(*args))
+        rec = self.record["cws_sparse"]
+        rec["ms"] = self.time_ms(lambda: kc.cws_sparse(*args))
+        rec["plain_ms"] = self.time_ms(lambda: kc.cws_sparse_plain(*args), iters=1, warmup=0)
+        tab_bytes = 12 * W_DIM * W_SAMPLES
+        # per active (row, dim, sample): division, add, floor, subtract,
+        # multiply, subtract, subtract, compare; a log per active (row, dim)
+        active = int((vals > 0).sum())
+        self.bound("cws_sparse", 8.0 * active * W_SAMPLES + active,
+                   8 * vals.numel() + 8 * (n_rows + 1) + tab_bytes + 8 * n_rows * W_SAMPLES)
+        head = indptr[: dense_rows + 1]
+        nnz = int(head[-1])
+        sparse_kt = kc.cws_sparse(vals[:nnz], idx[:nnz], head, *tables)
+        dense = densify(torch, vals[:nnz], idx[:nnz], head, W_DIM)
+        del vals, idx, indptr
+        chunk = min(dense_rows, gen._CHUNK_ELEMS // W_DIM)  # the generator's
+        for r0 in range(0, dense_rows, chunk):
+            w = dense[r0: r0 + chunk]
+            got = kc.cws_dense(w, *tables)
+            self.compare("cws_dense", "rows %d..%d densified" % (r0, r0 + w.shape[0] - 1),
+                         got, kc.cws_dense_plain(w, *tables))
+            check(torch.equal(got, sparse_kt[r0: r0 + chunk]),
+                  "kernel 6 on densified rows differs from kernel 7 on the CSR rows")
+        w = dense[:chunk]
+        rec = self.record["cws_dense"]
+        rec["ms"] = self.time_ms(lambda: kc.cws_dense(w, *tables))
+        rec["plain_ms"] = self.time_ms(lambda: kc.cws_dense_plain(w, *tables), iters=1,
+                                       warmup=0)
+        active = int((w > 0).sum())
+        self.bound("cws_dense", 8.0 * active * W_SAMPLES + active,
+                   4 * w.numel() + tab_bytes + 8 * chunk * W_SAMPLES)
+        del dense, w, sparse_kt
+        for d, s in ((10001, 100), (333, 6), (W_DIM, W_SAMPLES)):
+            tabs, w = cws_edge_case(torch, d, s, dev, edge_rows)
+            vals, idx, indptr = to_csr(torch, w)
+            got = kc.cws_dense(w, *tabs)
+            case = "edges D %d S %d" % (d, s)
+            self.compare("cws_dense", case, got, kc.cws_dense_plain(w, *tabs))
+            csr = kc.cws_sparse(vals, idx, indptr, *tabs)
+            self.compare("cws_sparse", case, csr, kc.cws_sparse_plain(vals, idx, indptr, *tabs))
+            check(torch.equal(got, csr), "%s: kernel 6 and kernel 7 differ" % case)
+            check(bool((got[3, :, 1] < 0).all()) and bool((got[0] == 0).all())
+                  and bool((got[2, :, 0] == 0).all()),
+                  "%s: negative t, the empty row or the forced tie are wrong" % case)
 
     def phase_signatures(self, n_docs: int = SIG_DOCS):
         """End-to-end signatures of the bench corpus."""
@@ -663,6 +811,243 @@ class Smoke:
             "(scan, bands, auto)" % n_sets)
 
 
+    # ---------------------------------------------------------- weighted
+
+    def phase_weighted_corpus(self, n_rows: int = W_ROWS, n_queries: int = W_QUERIES):
+        """The weighted rows as the host scipy CSR matrix a user passes,
+        and ``n_queries`` queries: indexed rows (sources drawn with seed
+        18) with each active weight scaled by U(0.85, 1.15)."""
+        import scipy.sparse as sp
+
+        t0 = time.perf_counter()
+        vals, idx, indptr = make_weighted_rows(self.torch, n_rows, W_DIM, self.device, seed=17)
+        x = sp.csr_matrix((vals.cpu().numpy(), idx.cpu().numpy(), indptr.cpu().numpy()),
+                          shape=(n_rows, W_DIM))
+        del vals, idx, indptr
+        rng = np.random.RandomState(18)
+        src = rng.choice(n_rows, n_queries, replace=False)
+        q = x[src]
+        q.data *= rng.uniform(0.85, 1.15, q.nnz).astype(np.float32)
+        log("[weighted] corpus: %d CSR rows x %d dims, nnz %d (%.1f per row), %d queries "
+            "(%.1f s)" % (n_rows, W_DIM, x.nnz, x.nnz / n_rows, n_queries,
+                          time.perf_counter() - t0))
+        return x, q, src
+
+    def phase_weighted(self, x, q, src, cpu_rows: int = W_CPU_ROWS,
+                       dense_rows: int = W_DENSE_ROWS):
+        """The weighted main path through the public facade: CSR rows ->
+        ``minhash_many(out="device")`` (kernel 7) -> ``TorchMinHashLSH`` ->
+        top-k by scan and bands, threshold query by bands; the dense path
+        (kernel 6) on the densified head; sampled rows against a
+        ``device="cpu"`` generator."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchMinHashLSH, WeightedMinHashGenerator
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        n = x.shape[0]
+        gen = WeightedMinHashGenerator(W_DIM, W_SAMPLES, seed=1, device=self.device)
+        gen.minhash_many(x[:4096], out="device")  # warm: tables, allocator
+        self.sync()
+        t0 = time.perf_counter()
+        kt = gen.minhash_many(x, out="device")
+        self.sync()
+        self.w_rate = n / (time.perf_counter() - t0)
+        check(kt.shape == (n, W_SAMPLES, 2) and kt.dtype == torch.int32
+              and kt.device.type == self.device.type,
+              "minhash_many gave %s %s on %s" % (tuple(kt.shape), kt.dtype, kt.device))
+        rows = np.sort(np.random.RandomState(19).choice(n, min(cpu_rows, n), replace=False))
+        cpu_gen = WeightedMinHashGenerator(W_DIM, W_SAMPLES, seed=1, device="cpu")
+        want = cpu_gen.minhash_many(x[rows], out="device").numpy()
+        got = kt[torch.from_numpy(rows).to(self.device)].cpu().numpy()
+        bad = np.argwhere((got != want).any(-1))
+        for r, smp in bad:
+            row = x[int(rows[r])]
+            ties = [floor_near_tie(row, int(k), smp, gen) for k in (got[r, smp, 0],
+                                                                     want[r, smp, 0])]
+            check(any(ties), "row %d sample %d: (k, t) %s on the device, %s on the CPU, "
+                  "and no floor near-tie at either winning dim"
+                  % (rows[r], smp, got[r, smp].tolist(), want[r, smp].tolist()))
+        log("[weighted] minhash_many of %d CSR rows: %.1f sketches/s (upload + kernel 7, "
+            "synced); %d sampled rows against the CPU generator: %d (row, sample) "
+            "mismatches (any must be a floor near-tie)" % (n, self.w_rate, rows.size,
+                                                           len(bad)))
+        dense = x[:dense_rows].toarray()
+        self.sync()
+        t0 = time.perf_counter()
+        kd = gen.minhash_many(dense, out="device")
+        self.sync()
+        self.w_dense_rate = dense.shape[0] / (time.perf_counter() - t0)
+        check(torch.equal(kd, kt[:dense_rows]), "the dense path differs from the CSR path")
+        log("[weighted] minhash_many of %d dense rows (%d B): %.1f sketches/s (upload + "
+            "kernel 6); equal to the CSR result" % (dense.shape[0], dense.nbytes,
+                                                     self.w_dense_rate))
+        del dense, kd
+        index = TorchMinHashLSH(threshold=0.5, num_perm=W_SAMPLES, device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index(range(n), kt)
+        self.sync()
+        self.w_build_s = time.perf_counter() - t0
+        log("[weighted] index of %d (k, t) rows: %.3f s; status %s"
+            % (n, self.w_build_s, json.dumps(index.status())))
+        q_kt = gen.minhash_many(q, out="device")
+        self.w_qps = {}
+        calls = {
+            "top_k scan": lambda: index.top_k(q_kt, W_TOP_K, method="scan"),
+            "top_k bands": lambda: index.top_k(q_kt, W_TOP_K, method="bands"),
+            "query_batch 0.5 bands": lambda: index.query_batch(q_kt, return_scores=True,
+                                                               method="bands"),
+        }
+        for label, fn in calls.items():
+            fn()  # first call of the shape
+            best = 0.0
+            for _ in range(3):
+                self.sync()
+                t0 = time.perf_counter()
+                out = fn()
+                self.sync()
+                best = max(best, len(src) / (time.perf_counter() - t0))
+            self.w_qps[label] = best
+            rec = float(np.mean([int(s_) in [key for key, _ in row]
+                                 for s_, row in zip(src, out)]))
+            log("[weighted] %-21s %10.1f q/s recall %.4f truncated %d longest %d"
+                % (label, best, rec, index.last_truncated, max(map(len, out))))
+            if label == "top_k scan":
+                check(rec >= 0.99, "weighted scan recall %.4f < 0.99" % rec)
+            if label.startswith("query_batch"):
+                check(all(sc >= 0.5 for row in out for _, sc in row),
+                      "weighted query_batch returned a score below the threshold")
+        if cuda:
+            self.w_peak = torch.cuda.max_memory_allocated()
+            log("[weighted] peak device memory %d B" % self.w_peak)
+        return gen, kt
+
+    def phase_weighted_checks(self, gen, x, kt, n_sets: int = W_ENS_SETS,
+                              n_pairs: int = W_SLOT_PAIRS) -> None:
+        """``kt_slots`` on the device against the host mix, and an
+        ensemble built from (k, t) batches against a ``device="cpu"`` one."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchMinHashLSHEnsemble
+        from datasketch_tpu_torch.ops.cws_ops import kt_slots, kt_slots_np
+
+        rng = np.random.RandomState(20)
+        pairs = np.stack([rng.randint(0, W_DIM, n_pairs),
+                          rng.randint(-(1 << 20), 1 << 20, n_pairs)], axis=-1)
+        pairs = pairs.astype(np.int32).reshape(-1, W_SAMPLES, 2)
+        got = kt_slots(torch.from_numpy(pairs).to(self.device)).cpu().numpy().view(np.uint32)
+        check(np.array_equal(got, kt_slots_np(pairs)), "kt_slots differs from the host mix")
+        log("[weighted] kt_slots of %d pairs (t in [-2**20, 2**20)) equal the host mix"
+            % n_pairs)
+        sizes = np.diff(x.indptr[: n_sets + 1])
+        qrows = rng.choice(n_sets, 128, replace=False)
+        qx = x[qrows]
+        qx.data *= rng.uniform(0.85, 1.15, qx.nnz).astype(np.float32)
+        q_kt = gen.minhash_many(qx, out="device")
+        q_sizes = np.diff(qx.indptr)
+        pair = [TorchMinHashLSHEnsemble(threshold=ENS_THRESHOLD, num_part=8, device=d)
+                for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index_batch(range(n_sets), kt[:n_sets].to(ix.device), sizes)
+        for method in ("scan", "bands", "auto"):
+            got = [ix.query_batch((q_kt.to(ix.device), q_sizes), method=method)
+                   for ix in pair]
+            if method == "bands":
+                got = [[set(r) for r in g] for g in got]
+            check(got[0] == got[1], "weighted ensemble parity: %s differs" % method)
+            check(pair[0].last_truncated == pair[1].last_truncated,
+                  "weighted ensemble parity: %s last_truncated differs" % method)
+            rec = float(np.mean([int(s_) in row for s_, row in zip(qrows, got[0])]))
+            if method == "scan":
+                check(rec >= 0.9, "weighted ensemble scan recall %.4f < 0.9" % rec)
+        log("[weighted ensemble parity] %d (k, t) sets x 128 queries: CUDA and CPU "
+            "ensembles agree (scan, bands, auto)" % n_sets)
+
+
+def make_weighted_rows(torch, n_rows: int, dim: int, device, seed: int,
+                       density: float = 0.02, chunk: int = 8192):
+    """``bench.py::bench_cws``'s rows drawn on ``device``: each (row, dim)
+    active with probability ``density`` (a Binomial(dim, density) count of
+    dims without replacement), plus dim ``i % dim`` of row i; |N(0, 1)|
+    weights, 1.0 at dim ``i % dim``. Returns CSR (vals f32, idx int32,
+    indptr int64) with ascending dims per row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    vals, idx, counts = [], [], []
+    for r0 in range(0, n_rows, chunk):
+        r1 = min(n_rows, r0 + chunk)
+        mask = torch.rand((r1 - r0, dim), generator=g, device=device) < density
+        rows = torch.arange(r0, r1, device=device)
+        mask[rows - r0, rows % dim] = True
+        nz = mask.nonzero()
+        v = torch.randn(nz.shape[0], generator=g, device=device).abs()
+        vals.append(torch.where(nz[:, 1] == (nz[:, 0] + r0) % dim, 1.0, v))
+        idx.append(nz[:, 1].to(torch.int32))
+        counts.append(mask.sum(dim=1))
+        del mask, nz
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=device)
+    indptr[1:] = torch.cumsum(torch.cat(counts), 0)
+    return torch.cat(vals), torch.cat(idx), indptr
+
+
+def densify(torch, vals, idx, indptr, dim: int):
+    """Dense f32[rows, dim] of CSR rows (dims unique within a row)."""
+    n = indptr.shape[0] - 1
+    w = torch.zeros((n, dim), dtype=torch.float32, device=vals.device)
+    rows = torch.repeat_interleave(torch.arange(n, device=vals.device),
+                                   indptr[1:] - indptr[:-1])
+    w[rows, idx.long()] = vals
+    return w
+
+
+def to_csr(torch, w):
+    """CSR (vals, idx int32, indptr int64) of a dense matrix's non-zero
+    entries, negative ones included."""
+    nz = (w != 0).nonzero()
+    indptr = torch.zeros(w.shape[0] + 1, dtype=torch.int64, device=w.device)
+    indptr[1:] = torch.cumsum((w != 0).sum(dim=1), 0)
+    return w[nz[:, 0], nz[:, 1]].contiguous(), nz[:, 1].to(torch.int32), indptr
+
+
+def cws_edge_case(torch, d: int, s: int, device, n_rows: int = 257):
+    """Tables (transposed [d, s], drawn as the generator draws them) whose
+    dims 1, 2 copy dim 0 and dim d-2 copies d-3, and rows: 0 empty, 1 one
+    active dim, 2 only dims 0-2 at one weight (a forced tie), 3 only tiny
+    weights (negative t), 4 only huge ones, 5 negative entries only, 6 dims
+    d-3 and d-2 tied among others, and the rest ~2 % dense with weights
+    log-uniform over 1e-30 .. 1e30."""
+    rng = np.random.RandomState(d + s)
+    rs = rng.gamma(2, 1, (d, s)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (d, s))).astype(np.float32)
+    betas = rng.uniform(0, 1, (d, s)).astype(np.float32)
+    for t in (rs, ln_cs, betas):
+        t[1:3] = t[0]
+        t[d - 2] = t[d - 3]
+    w = np.where(rng.rand(n_rows, d) < 0.02, 10.0 ** rng.uniform(-30, 30, (n_rows, d)), 0.0)
+    w = w.astype(np.float32)
+    w[:7] = 0.0
+    w[1, d // 2] = 0.3
+    w[2, :3] = 0.75
+    w[3, :: max(1, d // 40)] = 1e-30
+    w[4, :: max(1, d // 40)] = 1e30
+    w[5, ::7] = -2.0
+    w[6, ::11] = 1.5
+    w[6, d - 3: d - 1] = 1.5
+    tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
+    return tabs, torch.from_numpy(w).to(device)
+
+
+def floor_near_tie(row, k: int, smp: int, gen) -> bool:
+    """Whether ``log(w_k) / r + beta`` of sample ``smp`` lies within 4 ulp
+    of an integer (there one ulp of ``log`` may move ``t``)."""
+    hit = np.nonzero(row.indices == k)[0]
+    if not hit.size:
+        return False
+    w = np.float32(row.data[hit[0]])
+    x = np.float32(np.float32(np.log(w)) / gen.rs[smp, k] + gen.betas[smp, k])
+    return bool(abs(x - np.round(x)) <= 4 * np.spacing(np.float32(max(abs(x), 1.0))))
+
+
 def make_token_sets(torch, n_sets: int, device, seed: int, vocab: int = 50000,
                     mean_size: int = 120):
     """Integer-token documents drawn on ``device``: lognormal lengths
@@ -753,6 +1138,7 @@ def main() -> int:
         smoke.phase_build()
         log("[kernels] each kernel against its plain version on the card")
         smoke.phase_kernels()
+        smoke.phase_kernels_cws()
         kmods = {k["name"]: smoke.kmod(k["name"]) for k in KERNELS}
 
         def counts():
@@ -795,7 +1181,25 @@ def main() -> int:
         for kname in ENSEMBLE_PATH:
             check(ens_counts[kname] > 0,
                   "kernel %s was not launched on the ensemble path" % kname)
-        launches = {name: lsh_counts[name] + ens_counts[name] for name in lsh_counts}
+        x, wq, wsrc = smoke.phase_weighted_corpus()
+        zero_counts()
+        gen, kt = smoke.phase_weighted(x, wq, wsrc)
+        torch.cuda.synchronize()
+        w_counts = counts()
+        smoke.phase_weighted_checks(gen, x, kt)
+        del x, kt
+        log("[weighted] %s: CSR %.1f sketches/s, dense %.1f sketches/s, build %.3f s, "
+            "q/s top_k scan %.1f, top_k bands %.1f, query_batch bands %.1f; peak device "
+            "memory %d B" % (nvidia_smi_line(), smoke.w_rate, smoke.w_dense_rate,
+                             smoke.w_build_s, smoke.w_qps["top_k scan"],
+                             smoke.w_qps["top_k bands"], smoke.w_qps["query_batch 0.5 bands"],
+                             smoke.w_peak))
+        log("[launches] weighted main path: %s" % json.dumps(w_counts))
+        for kname in WEIGHTED_PATH:
+            check(w_counts[kname] > 0,
+                  "kernel %s was not launched on the weighted path" % kname)
+        launches = {name: lsh_counts[name] + ens_counts[name] + w_counts[name]
+                    for name in lsh_counts}
         report = []
         for k in KERNELS:
             rec = smoke.record[k["name"]]
@@ -803,7 +1207,8 @@ def main() -> int:
                 "name": k["name"], "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"], "launches": launches[k["name"]],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             })
         log("[done] %.1f s in all" % (time.perf_counter() - t_start))
         print(json.dumps({"kernels": report}))

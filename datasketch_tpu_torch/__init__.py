@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH and LSH Ensemble
-serving paths.
+"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble and
+weighted MinHash (CWS) serving paths.
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -17,5 +17,15 @@ kernels compile with ``nvcc`` at first use on the card.
 from datasketch_tpu_torch.models.minhash import MinHash
 from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
+from datasketch_tpu_torch.models.weighted_minhash import (
+    WeightedMinHash,
+    WeightedMinHashGenerator,
+)
 
-__all__ = ["MinHash", "TorchMinHashLSH", "TorchMinHashLSHEnsemble"]
+__all__ = [
+    "MinHash",
+    "TorchMinHashLSH",
+    "TorchMinHashLSHEnsemble",
+    "WeightedMinHash",
+    "WeightedMinHashGenerator",
+]

@@ -8,8 +8,10 @@ named by a hash of the sources and flags, so a fresh checkout builds
 everything from the repo's sources and a stale build is never loaded.
 
 No ``--use_fast_math``: scores are ``f32(count) * f32(1/P)`` with the
-reciprocal correctly rounded, bit for bit the reference's, and the
-containment score's division is IEEE; fast math would approximate both.
+reciprocal correctly rounded, bit for bit the reference's, the
+containment score's division is IEEE, and the CWS kernels need the IEEE
+division and the accurate ``logf``; fast math would approximate all of
+them.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*``, launches on that stream (the caller passes torch's current
@@ -55,6 +57,8 @@ _SIGNATURES = {
     "ds_rerank": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
     "ds_topk_scan": [_P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _F, _I, _I, _P, _P, _P, _P],
     "ds_topk_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "ds_cws_dense": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
+    "ds_cws_sparse": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -10,8 +10,10 @@ kernel 4 past k = 128). Answers equal the JAX package's: band results as
 sets, scan results as ordered lists, ``last_truncated`` included, and
 checkpoints load in either package.
 
-Weighted (k, t) CWS sketches wait for the CWS kernels (6 and 7), and
-``query_stream`` for the streams slice of the port.
+Weighted sketches go in as the JAX package's do: WeightedMinHash objects
+and [N, S, 2] (k, t) batches are mixed to slots (``ops.cws_ops.kt_slots``,
+on the batch's own device for a tensor). ``query_stream`` waits for the
+streams slice of the port.
 """
 
 from __future__ import annotations
@@ -35,22 +37,6 @@ from datasketch_tpu_torch.ops import lsh_ops
 __all__ = ["TorchMinHashLSHEnsemble"]
 
 _METHODS = ("auto", "bands", "scan")
-_KT_MSG = (
-    "weighted (k, t) CWS sketches are not ported yet: they need the CWS "
-    "kernels (6 and 7), which a later slice of the port adds"
-)
-
-
-def _sig_matrix(minhashes, device: torch.device) -> torch.Tensor:
-    """int32[N, P] signatures on ``device``; (k, t) batches raise."""
-    if isinstance(minhashes, (np.ndarray, torch.Tensor)) and minhashes.ndim == 3:
-        raise ValueError(_KT_MSG)
-    sigs = _as_signature_matrix(minhashes, device)
-    if sigs.dim() != 2:
-        raise ValueError(_KT_MSG)
-    return sigs
-
-
 def _host_sizes(sizes) -> np.ndarray:
     """Set sizes as int64[N] on the host, each as ``int(size)``."""
     if isinstance(sizes, torch.Tensor):
@@ -162,14 +148,14 @@ class TorchMinHashLSHEnsemble:
         entries = list(entries)
         keys = [e[0] for e in entries]
         sizes = _host_sizes([e[2] for e in entries])
-        self._build(keys, _sig_matrix([e[1] for e in entries], self.device), sizes)
+        self._build(keys, _as_signature_matrix([e[1] for e in entries], self.device), sizes)
 
     def index_batch(self, keys, minhashes, sizes) -> None:
         """One-shot bulk build from a signature batch (uint32 numpy matrix,
-        int32 tensor, or rows / MinHash-like objects) and the exact set
-        sizes."""
+        int32 tensor, [N, P, 2] (k, t) batch, or rows / MinHash-like or
+        WeightedMinHash objects) and the exact set sizes."""
         keys = list(keys)
-        sigs = _sig_matrix(minhashes, self.device)
+        sigs = _as_signature_matrix(minhashes, self.device)
         sizes = _host_sizes(sizes)
         if not (len(keys) == sigs.shape[0] == len(sizes)):
             raise ValueError("keys, minhashes and sizes must have equal length")
@@ -296,7 +282,8 @@ class TorchMinHashLSHEnsemble:
     def _as_query_batch(self, queries):
         """(sizes int64[Q], q_sigs int32[Q, P] or None) from an iterable of
         ``(minhash, size)`` pairs, one ``(signature, size)`` pair, or a
-        ``(batch, sizes)`` pair: a 2-D batch and one size per row."""
+        ``(batch, sizes)`` pair: a 2-D signature batch or an [N, P, 2]
+        (k, t) batch, and one size per row."""
         if isinstance(queries, tuple) and len(queries) == 2:
             first, second = queries
             if _is_array(first) and first.ndim >= 2:
@@ -305,7 +292,7 @@ class TorchMinHashLSHEnsemble:
                         "a (batch, sizes) query needs one size per row of the "
                         "batch, got %r" % (type(second).__name__,)
                     )
-                q_sigs = _sig_matrix(first, self.device)
+                q_sigs = _as_signature_matrix(first, self.device)
                 sizes = _host_sizes(second)
                 if q_sigs.shape[0] != len(sizes):
                     raise ValueError("batch and sizes must have equal length")
@@ -323,7 +310,7 @@ class TorchMinHashLSHEnsemble:
             raise ValueError(
                 "queries must be (minhash, size) pairs or one (batch, sizes) pair"
             ) from exc
-        return _host_sizes(sizes), _sig_matrix(minhashes, self.device)
+        return _host_sizes(sizes), _as_signature_matrix(minhashes, self.device)
 
     def _resolve_scan_method(self, method: str, q_pad: int) -> str:
         """'auto' picks the scan whenever the stacked table is no larger

@@ -23,6 +23,7 @@ from datasketch_tpu_torch.device import as_sig_tensor, resolve_device
 from datasketch_tpu_torch.models.lsh_params import optimal_param
 from datasketch_tpu_torch.models.minhash import pow2_at_least
 from datasketch_tpu_torch.ops import lsh_ops
+from datasketch_tpu_torch.ops.cws_ops import kt_slots, kt_slots_np
 
 __all__ = ["TorchMinHashLSH"]
 
@@ -30,22 +31,28 @@ _METHODS = ("auto", "bands", "scan")
 
 
 def _host_rows(minhashes) -> np.ndarray:
-    """uint32[N, P] from a sequence of rows or objects with ``hashvalues``
-    (uint64 MinHash state holds values < 2**32)."""
-    rows = [
-        np.asarray(m.hashvalues if hasattr(m, "hashvalues") else m)
-        .astype(np.uint64).astype(np.uint32)
-        for m in minhashes
-    ]
+    """uint32[N, P] from a sequence of rows or objects with ``hashvalues``:
+    MinHash state (uint64 values < 2**32) or WeightedMinHash (k, t) pairs
+    ([P, 2], mixed to slots by ``kt_slots_np``)."""
+    rows = []
+    for m in minhashes:
+        hv = np.asarray(m.hashvalues if hasattr(m, "hashvalues") else m)
+        rows.append(kt_slots_np(hv) if hv.ndim == 2 else hv.astype(np.uint64).astype(np.uint32))
     return np.stack(rows) if rows else np.zeros((0, 0), dtype=np.uint32)
 
 
 def _as_signature_matrix(minhashes, device: torch.device) -> torch.Tensor:
     """Signatures as an int32[N, P] tensor on ``device``: a uint32 numpy
-    matrix, a tensor (int32 bits), or a sequence of rows / objects with
-    ``hashvalues``."""
-    if isinstance(minhashes, (np.ndarray, torch.Tensor)) and minhashes.ndim == 2:
-        return as_sig_tensor(minhashes, device)
+    matrix, a tensor (int32 bits), an [N, P, 2] (k, t) batch (numpy, or a
+    tensor mixed to slots on its own device), or a sequence of rows /
+    MinHash or WeightedMinHash objects."""
+    if isinstance(minhashes, (np.ndarray, torch.Tensor)):
+        if minhashes.ndim == 2:
+            return as_sig_tensor(minhashes, device)
+        if minhashes.ndim == 3:
+            slots = (kt_slots(minhashes) if isinstance(minhashes, torch.Tensor)
+                     else kt_slots_np(minhashes))
+            return as_sig_tensor(slots, device)
     return as_sig_tensor(_host_rows(minhashes), device)
 
 
@@ -135,7 +142,8 @@ class TorchMinHashLSH:
 
     def index(self, keys: Sequence[Hashable], minhashes) -> None:
         """Bulk-build from parallel (keys, signatures): a uint32[N, P] numpy
-        matrix, an int32 tensor, or rows / MinHash-like objects."""
+        matrix, an int32 tensor, an [N, P, 2] (k, t) batch, or rows /
+        MinHash-like or WeightedMinHash objects."""
         self._flush_pending()
         keys = list(keys)
         sigs = _as_signature_matrix(minhashes, self.device)

@@ -11,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from datasketch_tpu_torch import MinHash, TorchMinHashLSH, TorchMinHashLSHEnsemble
-from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
-from datasketch_tpu_torch.ops import lsh_ops
+from datasketch_tpu_torch import (
+    MinHash,
+    TorchMinHashLSH,
+    TorchMinHashLSHEnsemble,
+    WeightedMinHashGenerator,
+)
+from datasketch_tpu_torch.kernels import cws, lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.ops import cws_ops, lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +179,105 @@ def test_cuda_ensemble_matches_cpu_ensemble(dev):
 def _token_sigs(ix, docs):
     return MinHash.bulk_signatures(docs, num_perm=ix.h, hashfunc="device", out="device",
                                    device=ix.device)
+
+
+def _cws_tables(dev, d, s, seed):
+    """Transposed f32[D, S] tables drawn as the generator draws them, with
+    dims 1 and 2 copies of dim 0 (forced ties for rows that weigh them
+    equally)."""
+    gen = WeightedMinHashGenerator(d, s, seed=seed, device="cpu")
+    tables = [np.ascontiguousarray(p.T) for p in (gen.rs, gen.ln_cs, gen.betas)]
+    for t in tables:
+        t[1:3] = t[0]
+    return [torch.from_numpy(t).to(dev) for t in tables]
+
+
+def _cws_rows(n, d, seed):
+    """f32[n, d] rows about 3 % dense with |N(0, 1)| weights, and ragged
+    cases: an empty row, one-dim rows, tied dims 0-2, weights 1e-30 and
+    1e30 (negative t), negative and zero entries."""
+    rng = np.random.RandomState(seed)
+    w = np.where(rng.rand(n, d) < 0.03, np.abs(rng.randn(n, d)), 0.0).astype(np.float32)
+    w[0] = 0.0
+    w[1] = 0.0
+    w[1, d - 1] = 2.5
+    w[2, :3] = 0.75
+    w[3] = 0.0
+    w[3, :40] = 1e-30
+    w[4, ::7] = 1e30
+    w[5] = -np.abs(w[5])
+    w[6, 5] = -1.0
+    return w
+
+
+@pytest.mark.parametrize("d,s", [(1000, 128), (10001, 100), (333, 6)])
+def test_cws_kernels_match_plain(dev, d, s):
+    """Kernels 6 and 7 against their plain twins on the same CUDA tensors,
+    and kernel 7 on CSR rows against kernel 6 on the same rows densified."""
+    tables = _cws_tables(dev, d, s, seed=d)
+    w_host = _cws_rows(97, d, seed=s)
+    w = torch.from_numpy(w_host).to(dev)
+    dense = _launched(cws, lambda: cws.cws_dense(w, *tables))
+    assert torch.equal(dense, cws.cws_dense_plain(w, *tables))
+    assert (dense[3, :, 1] < 0).all()
+    import scipy.sparse as sp
+
+    x = sp.csr_matrix(w_host)
+    args = [torch.from_numpy(a).to(dev) for a in (x.data, x.indices.astype(np.int32),
+                                                  x.indptr.astype(np.int64))]
+    before = cws.launches_sparse
+    sparse = cws.cws_sparse(*args, *tables)
+    torch.cuda.synchronize()
+    assert cws.launches_sparse == before + 1
+    assert torch.equal(sparse, cws.cws_sparse_plain(*args, *tables))
+    assert torch.equal(sparse, dense)
+
+
+def test_kt_slots_on_the_card_match_host(dev):
+    rng = np.random.RandomState(3)
+    kt = np.stack([rng.randint(0, 10000, (4096, 128)),
+                   rng.randint(-(1 << 20), 1 << 20, (4096, 128))], axis=-1).astype(np.int32)
+    got = cws_ops.kt_slots(torch.from_numpy(kt).to(dev)).cpu().numpy().view(np.uint32)
+    assert np.array_equal(got, cws_ops.kt_slots_np(kt))
+
+
+def test_cuda_weighted_index_matches_cpu_index(dev):
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(4)
+    base = np.where(rng.rand(600, 2000) < 0.02, np.abs(rng.randn(600, 2000)), 0.0)
+    base[:, 7] = 1.0
+    x = sp.csr_matrix(base.astype(np.float32))
+    q = x[:48].copy()
+    q.data *= rng.uniform(0.85, 1.15, q.nnz).astype(np.float32)
+    gens = [WeightedMinHashGenerator(2000, 128, seed=1, device=d) for d in (dev, "cpu")]
+    kts = [g.minhash_many(x, out="device") for g in gens]
+    assert torch.equal(kts[0].cpu(), kts[1])
+    pair = [TorchMinHashLSH(threshold=0.5, device=d) for d in (dev, "cpu")]
+    for ix, kt in zip(pair, kts):
+        ix.index(range(600), kt)
+    qs = [g.minhash_many(q, out="device") for g in gens]
+    for method in ("scan", "bands"):
+        got = [ix.top_k(qq, 5, method=method) for ix, qq in zip(pair, qs)]
+        assert got[0] == got[1]
+        got = [ix.query_batch(qq, return_scores=True, method=method)
+               for ix, qq in zip(pair, qs)]
+        assert got[0] == got[1]
+
+
+def test_cws_sparse_rejects_bad_csr(dev):
+    """Offsets or dims that would read outside the arrays raise before any
+    launch."""
+    tables = _cws_tables(dev, 50, 8, seed=1)
+    vals = torch.ones(6, device=dev)
+    idx = torch.arange(6, dtype=torch.int32, device=dev)
+    bad = [
+        (vals, idx, torch.tensor([0, 4, 7], device=dev)),  # past nnz
+        (vals, idx, torch.tensor([0, 4, 2, 6], device=dev)),  # falling
+        (vals, idx + 45, torch.tensor([0, 6], device=dev)),  # dim >= D
+    ]
+    before = cws.launches_sparse
+    for args in bad:
+        with pytest.raises(ValueError):
+            cws.cws_sparse(*args, *tables)
+    assert cws.launches_sparse == before

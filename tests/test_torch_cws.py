@@ -1,0 +1,148 @@
+"""Port parity: the CWS batches (kernels 6 and 7's plain versions, on the
+CPU) and the (k, t) -> slot mix against the JAX package's ``cws_ops`` and
+its Pallas kernels in interpret mode, on the same numpy inputs. The bar is
+exact equality of every (k, t) pair; on a mismatch the message says whether
+the pair's floor argument lay within 4 ulp of an integer (a near-tie, where
+one ulp of ``log`` moves ``t``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from datasketch_tpu.ops import cws_ops as jax_cws
+from datasketch_tpu.ops import pallas_kernels as pk
+from datasketch_tpu_torch.kernels import cws
+from datasketch_tpu_torch.ops import cws_ops
+
+torch.set_num_threads(2)
+
+
+def _tables(s, d, seed):
+    """(rs, ln_cs, betas) f32[S, D] as the generator draws them, with dims
+    1 and 2 copies of dim 0: rows that weigh dims 0-2 equally tie there."""
+    rng = np.random.RandomState(seed)
+    rs = rng.gamma(2, 1, (s, d)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (s, d))).astype(np.float32)
+    betas = rng.uniform(0, 1, (s, d)).astype(np.float32)
+    for p in (rs, ln_cs, betas):
+        p[:, 1:3] = p[:, :1]
+    return rs, ln_cs, betas
+
+
+def _weights(b, d, seed):
+    """f32[B, D], ~4 % dense |N(0, 1)| weights; row 0 all zero, row 1 one
+    active dim, row 2 dims 0-2 tied, row 3 only tiny weights (negative t),
+    row 4 huge ones."""
+    rng = np.random.RandomState(seed)
+    w = np.where(rng.rand(b, d) < 0.04, np.abs(rng.randn(b, d)), 0.0).astype(np.float32)
+    w[0] = 0.0
+    w[1] = 0.0
+    w[1, d - 1] = 3.0
+    w[2, :3] = 0.5
+    w[3] = 0.0
+    w[3, 5:30] = 1e-30
+    w[4, ::9] = 1e30
+    return w
+
+
+def near_ties(got, want, w, rs, betas):
+    """Describe each differing (row, sample): whether log(w)/r + beta at
+    either side's dim is within 4 ulp of an integer."""
+    out = []
+    for row, s in np.argwhere((got != want).any(-1))[:10]:
+        for k in {int(got[row, s, 0]), int(want[row, s, 0])}:
+            x = np.float32(np.log(np.float32(w[row, k])) / rs[s, k] + betas[s, k])
+            gap = abs(x - np.round(x)) / np.spacing(np.float32(max(abs(x), 1.0)))
+            out.append("row %d sample %d dim %d: floor argument %r, %.1f ulp from "
+                       "an integer (%s)" % (row, s, k, x, gap,
+                                           "near-tie" if gap <= 4 else "NOT a near-tie"))
+    return "; ".join(out)
+
+
+def assert_kt_equal(got, want, w, rs, betas):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    if not np.array_equal(got, want):
+        n = int((got != want).any(-1).sum())
+        raise AssertionError("%d (row, sample) pairs differ: %s"
+                             % (n, near_ties(got, want, w, rs, betas)))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("b,s,d", [(8, 128, 300), (32, 100, 1000), (16, 128, 1000)])
+def test_cws_many_matches_jax_and_pallas(b, s, d):
+    rs, ln_cs, betas = _tables(s, d, seed=d + s)
+    w = _weights(b, d, seed=b)
+    got = cws_ops.cws_many(_t(w), _t(rs), _t(ln_cs), _t(betas)).numpy()
+    assert got.dtype == np.int32 and got.shape == (b, s, 2)
+    assert_kt_equal(got, jax_cws.cws_many(w, rs, ln_cs, betas), w, rs, betas)
+    assert_kt_equal(got, pk.cws_many_pallas(w, rs, ln_cs, betas, interpret=True),
+                    w, rs, betas)
+    assert (got[0] == 0).all()  # no active dim: (0, 0)
+    assert (got[1, :, 0] == d - 1).all()
+    assert (got[2, :, 0] != 1).all() and (got[2, :, 0] != 2).all()  # ties to dim 0
+    assert (got[3, :, 1] < 0).all()
+
+
+def _padded(w):
+    """Right-padded CSR form of dense rows: vals/idx [B, NZ]."""
+    nnz = (w > 0).sum(1)
+    nz = max(1, int(nnz.max()))
+    vals = np.zeros((w.shape[0], nz), np.float32)
+    idx = np.zeros((w.shape[0], nz), np.int32)
+    for i, row in enumerate(w):
+        cols = np.nonzero(row > 0)[0]
+        vals[i, : cols.size] = row[cols]
+        idx[i, : cols.size] = cols
+    return vals, idx
+
+
+@pytest.mark.parametrize("b,s,d", [(8, 128, 300), (24, 100, 1000)])
+def test_cws_many_sparse_matches_jax_pallas_and_dense(b, s, d):
+    rs, ln_cs, betas = _tables(s, d, seed=7 * d + s)
+    w = _weights(b, d, seed=3 * b)
+    vals, idx = _padded(w)
+    tables = [np.ascontiguousarray(p.T) for p in (rs, ln_cs, betas)]
+    got = cws_ops.cws_many_sparse(_t(vals), _t(idx), *map(_t, tables)).numpy()
+    assert_kt_equal(got, jax_cws.cws_many_sparse(vals, idx, *tables), w, rs, betas)
+    assert_kt_equal(got, pk.cws_sparse_pallas(vals, idx, *tables, interpret=True),
+                    w, rs, betas)
+    dense = cws_ops.cws_many(_t(w), _t(rs), _t(ln_cs), _t(betas)).numpy()
+    assert_kt_equal(got, dense, w, rs, betas)
+
+
+def test_cws_sparse_ragged_rows_equal_padded():
+    """Kernel 7's flat CSR form (ragged rows, an empty row, entries <= 0
+    inactive) equals the padded form row for row."""
+    s, d = 100, 500
+    rs, ln_cs, betas = _tables(s, d, seed=11)
+    tables = [_t(np.ascontiguousarray(p.T)) for p in (rs, ln_cs, betas)]
+    w = _weights(12, d, seed=5)
+    w[7, ::50] = -2.0  # negative entries: inactive
+    rows = [np.nonzero(r)[0] for r in w]
+    indptr = np.concatenate([[0], np.cumsum([r.size for r in rows])]).astype(np.int64)
+    idx = np.concatenate(rows).astype(np.int32)
+    vals = np.concatenate([w[i, r] for i, r in enumerate(rows)]).astype(np.float32)
+    got = cws.cws_sparse(_t(vals), _t(idx), _t(indptr), *tables).numpy()
+    vals_p, idx_p = _padded(w)
+    want = cws_ops.cws_many_sparse(_t(vals_p), _t(idx_p), *tables).numpy()
+    assert_kt_equal(got, want, w, rs, betas)
+    assert (got[0] == 0).all()
+
+
+def test_kt_slots_match_jax():
+    rng = np.random.RandomState(1)
+    kt = np.stack([rng.randint(0, 10000, size=(16, 128)),
+                   rng.randint(-(1 << 30), 1 << 30, size=(16, 128))], axis=-1).astype(np.int32)
+    kt[0, :4] = [[0, -1], [2**31 - 1, -(2**31)], [9999, 2**31 - 1], [0, 0]]
+    want = jax_cws.kt_slots_np(kt)
+    assert np.array_equal(np.asarray(jax_cws.kt_slots(kt)), want)
+    got = cws_ops.kt_slots(_t(kt))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert np.array_equal(cws_ops.kt_slots_np(kt), want)
+    assert np.array_equal(cws_ops.kt_slots(_t(kt.astype(np.int64))).numpy().view(np.uint32),
+                          want)

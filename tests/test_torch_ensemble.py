@@ -244,8 +244,8 @@ def test_index_and_query_validation(pair05):
         ix.index_batch(["a", "b"], sigs[:3], [1, 2, 3])
     with pytest.raises(ValueError, match="Expecting minhash with length"):
         ix.index_batch(["a"], sigs[:1, :64], [3])
-    with pytest.raises(ValueError, match="CWS"):
-        ix.index_batch(["a"], np.zeros((1, P, 2), dtype=np.int32), [3])
+    with pytest.raises(ValueError, match="Expecting minhash with length"):
+        ix.index_batch(["a"], np.zeros((1, 64, 2), dtype=np.int32), [3])  # (k, t)
     with pytest.raises(ValueError, match="equal length"):
         ix.index_tokens(["a"], [[1, 2], [3]])
     assert ix.query_batch([(sigs[0], 4)]) == [[]]  # empty index
@@ -256,8 +256,8 @@ def test_index_and_query_validation(pair05):
         ix.query_batch([(sigs[0], 4)], method="walk")
     with pytest.raises(ValueError, match="Expecting minhash with length"):
         ix.query_batch([(sigs[0][:64], 4)])
-    with pytest.raises(ValueError, match="CWS"):
-        ix.query_batch((np.zeros((2, P, 2), dtype=np.int32), [3, 4]))
+    with pytest.raises(ValueError, match="Expecting minhash with length"):
+        ix.query_batch((np.zeros((2, 64, 2), dtype=np.int32), [3, 4]))  # (k, t)
     with pytest.raises(ValueError, match="pairs"):
         ix.query_batch([(sigs[0], 4, 1)])
     assert ix.query_batch((sigs[:2], [4, 9]), method="scan")[0][0] == "a"

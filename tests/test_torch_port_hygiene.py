@@ -9,9 +9,14 @@ import sys
 import pytest
 import torch
 
-from datasketch_tpu_torch import MinHash, TorchMinHashLSH, TorchMinHashLSHEnsemble
+from datasketch_tpu_torch import (
+    MinHash,
+    TorchMinHashLSH,
+    TorchMinHashLSHEnsemble,
+    WeightedMinHashGenerator,
+)
 from datasketch_tpu_torch.device import resolve_device
-from datasketch_tpu_torch.kernels import lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.kernels import cws, lsh_scan, minhash_sign, rerank, score
 
 torch.set_num_threads(2)
 
@@ -23,10 +28,12 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "import sys, torch",
         "import datasketch_tpu_torch",
         "from datasketch_tpu_torch import native, hashfunc, device, persist",
-        "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops",
+        "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops, cws_ops",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
         "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
-        "from datasketch_tpu_torch.kernels import build, lsh_scan, minhash_sign, rerank, score",
+        "from datasketch_tpu_torch.models import weighted_minhash",
+        "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
+        "from datasketch_tpu_torch.kernels import score",
         "from datasketch_tpu_torch.utils import profiling",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'datasketch_tpu'))",
@@ -50,6 +57,8 @@ def test_cuda_without_a_card_raises():
         MinHash.bulk_signatures([[b"a", b"b"]], device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchMinHashLSHEnsemble(threshold=0.8, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WeightedMinHashGenerator(100, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -68,7 +77,7 @@ def _meta(shape, dtype=torch.int32):
 
 
 @pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "containment_topk",
-                                  "rerank", "score"])
+                                  "rerank", "score", "cws_dense", "cws_sparse"])
 def test_wrapper_on_other_device_raises(name):
     """A tensor that is neither on the CPU nor on a card never takes the
     plain version (which would happily run on 'meta')."""
@@ -82,10 +91,18 @@ def test_wrapper_on_other_device_raises(name):
         "rerank": lambda: rerank.rerank_scores(_meta((64, 128)), _meta((3, 128)),
                                                _meta((3, 7))),
         "score": lambda: score.score_matrix(_meta((3, 128)), _meta((64, 128))),
+        "cws_dense": lambda: cws.cws_dense(_meta((3, 50), torch.float32),
+                                           *[_meta((50, 128), torch.float32)] * 3),
+        "cws_sparse": lambda: cws.cws_sparse(
+            _meta((9,), torch.float32), _meta((9,)), _meta((4,), torch.int64),
+            *[_meta((50, 128), torch.float32)] * 3),
     }
-    counters = (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
-                rerank.launches, score.launches)
+
+    def counters():
+        return (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
+                rerank.launches, score.launches, cws.launches, cws.launches_sparse)
+
+    before = counters()
     with pytest.raises(ValueError, match="CUDA device"):
         calls[name]()
-    assert (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
-            rerank.launches, score.launches) == counters
+    assert counters() == before

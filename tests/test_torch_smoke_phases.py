@@ -1,8 +1,9 @@
 """chip_smoke.py's main-path phases rehearsed on the CPU at a small size.
 
 The plain PyTorch versions stand in for the kernels, so a change that
-breaks the script's signatures -> index -> serving -> facade-parity checks
-fails here before it reaches a card.
+breaks the script's signatures -> index -> serving -> facade-parity checks,
+its ensemble phases or its weighted (CWS) phases fails here before it
+reaches a card.
 """
 
 import torch
@@ -29,3 +30,13 @@ def test_smoke_ensemble_phases_on_cpu():
     assert set(smoke.ens_qps) == {"scan", "bands", "auto"}
     smoke.phase_ensemble_checks(*ens)
     smoke.phase_ensemble_parity(n_sets=1000)
+
+
+def test_smoke_weighted_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    smoke.phase_kernels_cws(n_rows=600, dense_rows=40, edge_rows=12)
+    assert smoke.record["cws_sparse"]["bound_by"] in ("bytes", "operations")
+    x, q, src = smoke.phase_weighted_corpus(n_rows=3000, n_queries=48)
+    gen, kt = smoke.phase_weighted(x, q, src, cpu_rows=64, dense_rows=40)
+    assert set(smoke.w_qps) == {"top_k scan", "top_k bands", "query_batch 0.5 bands"}
+    smoke.phase_weighted_checks(gen, x, kt, n_sets=1000, n_pairs=1 << 14)

@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's paths, on one card.
+
+Usage, from the root of a checkout, on a machine with a CUDA card:
+
+    python3 tools/profile_torch.py [CELL ...]
+
+CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``
+(default: all, in that order; ``lsh-1m`` indexes the signatures of
+``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
+``chip_smoke.py``'s data for it and profiles each step of its path with
+``torch.profiler`` (CPU and CUDA activity) over 3 calls after a warm one
+(builds: 1 call after a warm one):
+
+- sign-16k: ``MinHash.bulk_signatures`` of 16,384 docs x 200 SHA1 tokens;
+- lsh-1m: the 1,048,576-row ``TorchMinHashLSH`` build, ``top_k`` k = 10 by
+  scan and bands, threshold ``query_batch`` by bands and scan, ``top_k``
+  k = 256 by scan, over 1,024 queries;
+- ensemble-1m: ``index_tokens`` of 1,048,576 sets, ``query_batch`` of
+  1,024 subset queries by scan and bands;
+- weighted-1m: ``minhash_many`` of 1,048,576 CSR rows (kernel 7) and of the
+  first 16,384 rows densified (kernel 6), the index build, ``top_k`` k = 5
+  by scan and bands and threshold ``query_batch`` by bands.
+
+Each step prints one JSON line: wall ms per call (host clock, synced),
+device ms per call (the union of the CUDA kernel and copy intervals), the
+device's idle share and the largest device events.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m")
+
+
+def device_time(prof):
+    """(union ms of the CUDA intervals, [(name, ms)] largest first)."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+    busy, cur_s, cur_e = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def profiled(torch, label: str, fn, reps: int = 3):
+    fn()  # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy, by_name = device_time(prof)
+    print(json.dumps({
+        "step": label, "wall_ms": wall, "device_ms": busy / reps,
+        "idle_share": 1.0 - busy / reps / wall,
+        "top_device_ms": [[name[:60], ms / reps] for name, ms in by_name[:8]],
+    }), flush=True)
+    return out
+
+
+def recall(src, rows, scored: bool = True) -> float:
+    """Share of queries whose source key is among the returned keys."""
+    import numpy as np
+
+    return float(np.mean([int(s) in ([key for key, _ in row] if scored else row)
+                          for s, row in zip(src, rows)]))
+
+
+def profile_sign(torch, chip_smoke, dev):
+    from datasketch_tpu_torch import MinHash
+
+    corpus = chip_smoke.make_corpus(chip_smoke.SIG_DOCS, seed=42)
+    sigs = profiled(torch, "bulk_signatures %d docs" % len(corpus),
+                    lambda: MinHash.bulk_signatures(corpus, num_perm=chip_smoke.NUM_PERM,
+                                                    seed=1, out="device", device=dev))
+    return sigs.cpu().numpy().view("uint32")
+
+
+def profile_lsh(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import TorchMinHashLSH
+
+    n = chip_smoke.N_INDEX
+    sigs, src, dst, _ = chip_smoke.synth_index(n, real)
+
+    def build_index():
+        index = TorchMinHashLSH(threshold=0.5, num_perm=chip_smoke.NUM_PERM, bucket_cap=128,
+                                device=dev)
+        index.index(range(n), sigs)
+        return index
+
+    index = profiled(torch, "index %d rows" % n, build_index, reps=1)
+    nq = chip_smoke.N_QUERIES
+    queries, expect = sigs[dst[-nq:]], src[-nq:]
+    k = chip_smoke.TOP_K
+    for method in ("scan", "bands"):
+        rows = profiled(torch, "top_k k=%d %s" % (k, method),
+                        lambda m=method: index.top_k(queries, k, method=m))
+        print(json.dumps({"recall": recall(expect, rows)}), flush=True)
+    for method in ("bands", "scan"):
+        profiled(torch, "query_batch 0.5 %s" % method,
+                 lambda m=method: index.query_batch(queries, return_scores=True, method=m))
+    profiled(torch, "top_k k=%d scan" % chip_smoke.BIG_K,
+             lambda: index.top_k(queries, chip_smoke.BIG_K, method="scan"))
+
+
+def profile_ensemble(torch, chip_smoke, dev, smoke):
+    import numpy as np
+
+    from datasketch_tpu_torch import MinHash, TorchMinHashLSHEnsemble
+
+    docs, queries, src = smoke.phase_ensemble_corpus()
+
+    def build_index():
+        index = TorchMinHashLSHEnsemble(threshold=chip_smoke.ENS_THRESHOLD,
+                                        num_perm=chip_smoke.NUM_PERM, num_part=8,
+                                        bucket_cap=128, max_results=2048, device=dev)
+        index.index_tokens(range(len(docs)), docs)
+        return index
+
+    index = profiled(torch, "index_tokens %d sets" % len(docs), build_index, reps=1)
+    q_sigs = MinHash.bulk_signatures(queries, num_perm=chip_smoke.NUM_PERM,
+                                     hashfunc="device", out="device", device=dev)
+    batch = (q_sigs, np.array([q.size for q in queries]))
+    for method in ("scan", "bands"):
+        rows = profiled(torch, "ensemble query_batch %s" % method,
+                        lambda m=method: index.query_batch(batch, method=m))
+        print(json.dumps({"recall": recall(src, rows, scored=False)}), flush=True)
+
+
+def profile_weighted(torch, chip_smoke, dev, smoke):
+    from datasketch_tpu_torch import TorchMinHashLSH, WeightedMinHashGenerator
+
+    x, q, src = smoke.phase_weighted_corpus()
+    gen = WeightedMinHashGenerator(chip_smoke.W_DIM, chip_smoke.W_SAMPLES, seed=1,
+                                   device=dev)
+    kt = profiled(torch, "minhash_many CSR %d rows" % x.shape[0],
+                  lambda: gen.minhash_many(x, out="device"))
+    dense = x[: chip_smoke.W_DENSE_ROWS].toarray()
+    profiled(torch, "minhash_many dense %d rows" % dense.shape[0],
+             lambda: gen.minhash_many(dense, out="device"))
+    del dense
+
+    def build_index():
+        index = TorchMinHashLSH(threshold=0.5, num_perm=chip_smoke.W_SAMPLES, device=dev)
+        index.index(range(kt.shape[0]), kt)
+        return index
+
+    index = profiled(torch, "index %d (k, t) rows" % kt.shape[0], build_index, reps=1)
+    q_kt = gen.minhash_many(q, out="device")
+    k = chip_smoke.W_TOP_K
+    for method in ("scan", "bands"):
+        rows = profiled(torch, "top_k k=%d %s" % (k, method),
+                        lambda m=method: index.top_k(q_kt, k, method=m))
+        print(json.dumps({"recall": recall(src, rows)}), flush=True)
+    profiled(torch, "query_batch 0.5 bands",
+             lambda: index.query_batch(q_kt, return_scores=True, method="bands"))
+
+
+def main() -> int:
+    import torch
+
+    cells = sys.argv[1:] or list(CELLS)
+    unknown = sorted(set(cells) - set(CELLS))
+    if unknown:
+        print("profile_torch: unknown cell(s) %s; cells are %s"
+              % (", ".join(unknown), ", ".join(CELLS)), file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda")
+    smoke = chip_smoke.Smoke(torch, dev)
+    smoke.phase_build()
+    real = None
+    for cell in CELLS:
+        if cell not in cells and not (cell == "sign-16k" and "lsh-1m" in cells):
+            continue
+        print(json.dumps({"cell": cell}), flush=True)
+        if cell == "sign-16k":
+            real = profile_sign(torch, chip_smoke, dev)
+        elif cell == "lsh-1m":
+            profile_lsh(torch, chip_smoke, dev, real)
+        elif cell == "ensemble-1m":
+            profile_ensemble(torch, chip_smoke, dev, smoke)
+        else:
+            profile_weighted(torch, chip_smoke, dev, smoke)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
