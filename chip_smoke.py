@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving,
-LSH Ensemble containment serving, and weighted MinHash (CWS) serving.
+LSH Ensemble containment serving, weighted MinHash (CWS) serving, b-bit
+MinHash serving, and the raw-text front ends.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -16,7 +17,9 @@ Phases (any failed check raises and the script exits non-zero):
    the main paths' shapes and ragged edges, timed with CUDA events, with
    each timed call's bound (bytes over 3.35 TB/s or operations over 67
    TFLOP/s, the larger) and, where one PyTorch call computes the same
-   function, that call's time;
+   function, that call's time; kernel 5 at every slot size, num_perm 128,
+   100 and 256 and ragged shapes, and timed at Q 1,024 x T 1,048,576 at
+   b = 1 and b = 4 beside ``torch.cdist(p=0)``;
 4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
    docs x 200 SHA1 tokens), checked against the plain version and a host
    numpy evaluation of the reference formula;
@@ -45,7 +48,25 @@ Phases (any failed check raises and the script exits non-zero):
     launch counts of kernels 6, 7, 2 and 3 read around it (each must be
     > 0); then ``kt_slots`` on the card against the host mix on 1M pairs,
     and an 8,192-set CUDA ensemble built from (k, t) batches against a
-    ``device="cpu"`` one.
+    ``device="cpu"`` one;
+11. bbit-1m: the index phase's 1,048,576 rows in a ``TorchBBitIndex`` at
+    b = 1 and b = 4 (``insert_batch`` of the int32 device tensor), 1,024
+    planted queries by ``query_batch`` k = 10 (recall >= 0.99), 64 of them
+    against the plain version on the card, 16 scores against
+    ``bBitMinHash.jaccard``, 1,000 removals, save / load, the status, with
+    kernel 5's launches read around it;
+12. bbit-16m: 16,777,216 rows at b = 1 drawn on the card in 1,048,576-row
+    chunks (``benchmarks/scale_benchmark.py::synth_signatures``' law), each
+    inserted as a device tensor, 1,024 planted queries (recall >= 0.98), 16
+    of them against the plain version;
+13. text-16k: the signature corpus as raw texts, ``MinHash.bulk_from_text``
+    (k = 9) with the on-card and the SHA1 engine against ``device="cpu"``
+    runs (and SHA1 against ``hashlib``), ``TorchMinHashLSH.index_text`` /
+    ``top_k_text`` (scan, bands) and ``TorchBBitIndex.insert_text`` /
+    ``query_batch`` on texts with their last 100 bytes replaced (recall >=
+    0.99 each), and ``index_tokens`` / ``top_k_tokens`` against a
+    ``device="cpu"`` index, with kernels 1, 2 and 3's launches read around
+    it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -54,11 +75,13 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -91,6 +114,8 @@ W_CPU_ROWS = 1024  # rows held against a device="cpu" generator
 W_DENSE_ROWS = 16384  # rows densified through kernel 6
 W_ENS_SETS = 8192
 W_SLOT_PAIRS = 1 << 20
+BBIT_ROWS = 1 << 24
+BBIT_CHUNK = 1 << 20
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -129,6 +154,12 @@ KERNELS = [
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:201",
     },
     {
+        "name": "bbit_scores",
+        "module": "bbit",
+        "source": "datasketch_tpu_torch/csrc/bbit.cu",
+        "replaces": "datasketch_tpu/ops/pallas_kernels.py:536",
+    },
+    {
         "name": "cws_dense",
         "module": "cws",
         "source": "datasketch_tpu_torch/csrc/cws.cu",
@@ -145,6 +176,8 @@ KERNELS = [
 LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix")
 ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
 WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
+BBIT_PATH = ("bbit_scores",)
+TEXT_PATH = ("minhash_sign", "topk_scan", "rerank")
 
 
 class SmokeFailure(RuntimeError):
@@ -174,6 +207,7 @@ class Smoke:
         self.record = {k["name"]: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                                    "bound_ms": None, "bound_by": None, "library_ms": None}
                        for k in KERNELS}
+        self.bbit = {}  # b -> the bbit-1m figures
 
     # ----------------------------------------------------------- helpers
 
@@ -964,6 +998,332 @@ class Smoke:
         log("[weighted ensemble parity] %d (k, t) sets x 128 queries: CUDA and CPU "
             "ensembles agree (scan, bands, auto)" % n_sets)
 
+    # ------------------------------------------------------------- b-bit
+
+    def phase_kernels_bbit(self, n_rows: int = N_INDEX, n_queries: int = N_QUERIES,
+                           ragged=(1, 33, 1000)) -> None:
+        """Kernel 5 against its plain version: every slot size at num_perm
+        128, 100 and 256 on low-cardinality bits and ragged Q and T, then
+        the serving shape (Q x N, num_perm 128) at b = 1 and b = 4, timed,
+        with its bound and ``torch.cdist(p=0)`` on the unpacked slots."""
+        torch = self.torch
+        from datasketch_tpu_torch.ops import bbit_ops
+
+        kb = self.kmod("bbit_scores")
+        big = max(ragged)
+        shapes = [(nq, nt) for nq in ragged for nt in ragged]
+        for num_perm in (128, 100, 256):
+            sigs = self.rand_sigs(2 * big, num_perm, 30 + num_perm, values=4)
+            for b in (1, 2, 4, 8, 16, 32):
+                s = bbit_ops.slot_size(b)
+                packed = bbit_ops.pack_bbit(sigs, b)
+                q, db = packed[:big], packed[big:]
+                self.compare("bbit_scores", "b %d P %d, Q x T in %s" % (b, num_perm, ragged),
+                             tuple(kb.bbit_counts(q[:nq], db[:nt], s) for nq, nt in shapes),
+                             tuple(kb.bbit_counts_plain(q[:nq], db[:nt], s)
+                                   for nq, nt in shapes))
+        db_sigs = self.rand_sigs(n_rows, NUM_PERM, 40)
+        g = torch.Generator(device=self.device).manual_seed(41)
+        qidx = torch.randint(0, n_rows, (n_queries,), generator=g, device=self.device)
+        q_sigs = self.near_copies(db_sigs[qidx], 0.7, 42)
+        rec = self.record["bbit_scores"]
+        for b in (1, 4):
+            s = bbit_ops.slot_size(b)
+            db, q = bbit_ops.pack_bbit(db_sigs, b), bbit_ops.pack_bbit(q_sigs, b)
+            w = db.shape[1]
+            case = "b %d: Q %d x T %d x W %d" % (b, n_queries, n_rows, w)
+            got = kb.bbit_counts(q, db, s)
+            self.compare("bbit_scores", case, got, kb.bbit_counts_plain(q, db, s))
+            ms = self.time_ms(lambda: kb.bbit_counts(q, db, s))
+            plain_ms = self.time_ms(lambda: kb.bbit_counts_plain(q, db, s), iters=1, warmup=0)
+            # per (query, row, word): the XOR, two operations per fold step,
+            # the masked NOT, the popcount and the add
+            ops = (4.0 + 2 * math.log2(s)) * n_queries * n_rows * w
+            nbytes = 4 * (n_queries + n_rows) * w + 4 * n_queries * n_rows
+            # one PyTorch call with the same function: the Hamming distance
+            # of the b-bit slots (cdist, p = 0) is num_perm minus the count
+            mask = (1 << b) - 1
+            qd = (q_sigs.to(torch.int64) & mask).double()
+            dd = (db_sigs.to(torch.int64) & mask).double()
+            same = (NUM_PERM - torch.cdist(qd, dd, p=0)).to(torch.int32) == got
+            check(bool(same.all()), "cdist(p=0) does not give kernel 5's counts (b %d)" % b)
+            del same, got
+            lib_ms = self.time_ms(lambda: torch.cdist(qd, dd, p=0), iters=2)
+            del qd, dd
+            if b == 1:  # the timed shape of the kernels line: bbit-1m at b = 1
+                rec["ms"], rec["plain_ms"], rec["library_ms"] = ms, plain_ms, lib_ms
+                self.bound("bbit_scores", ops, nbytes)
+            log("  bbit_scores   %s: kernel %s ms, plain %s ms, cdist %s ms, %.3e ops, "
+                "%.3e bytes" % (case, ms, plain_ms, lib_ms, ops, nbytes))
+
+    def phase_bbit(self, sigs: np.ndarray, src, dst, b: int, n_queries: int = N_QUERIES,
+                   n_remove: int = N_REMOVE) -> None:
+        """bbit-1m: the lsh-1m corpus in a ``TorchBBitIndex`` (insert_batch
+        of the int32 device tensor), ``query_batch`` k = 10 of planted
+        queries, recall, the plain version on 64 queries, scores against
+        ``bBitMinHash.jaccard``, removals, save / load and the status."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchBBitIndex, bBitMinHash
+        from datasketch_tpu_torch.kernels.bbit import bbit_counts_plain
+        from datasketch_tpu_torch.ops import bbit_ops
+
+        cuda = self.device.type == "cuda"
+        n = sigs.shape[0]
+        dev_sigs = torch.from_numpy(sigs.view(np.int32)).to(self.device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        index = TorchBBitIndex(b=b, num_perm=NUM_PERM, device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        index.insert_batch(range(n), dev_sigs)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        queries = dev_sigs[torch.from_numpy(dst[-n_queries:]).to(self.device)]
+        expect = src[-n_queries:]
+        del dev_sigs
+        qps, rows = self.timed_qps(lambda: index.query_batch(queries, TOP_K), n_queries)
+        rec = float(np.mean([int(e) in row for e, row in zip(expect, rows)]))
+        check(all(len(r) == TOP_K for r in rows), "bbit-1m b %d: short rows" % b)
+        check(rec >= 0.99, "bbit-1m b %d: recall %.4f < 0.99" % (b, rec))
+        m = min(64, n_queries)
+        ids, cnt = index._query_dispatch(queries[:m], TOP_K)
+        p_ids, p_cnt = bbit_ops.bbit_topk_scan(
+            index._packed, bbit_ops.pack_bbit(queries[:m], b), TOP_K, b, NUM_PERM,
+            counts_fn=bbit_counts_plain)
+        check(torch.equal(ids, p_ids) and torch.equal(cnt, p_cnt),
+              "bbit-1m b %d: ids / counts differ from the plain version" % b)
+        check(rows[:m] == p_ids.cpu().tolist(),
+              "bbit-1m b %d: answers differ from the plain version's ids" % b)
+        scored = index.query_batch(queries[:16], TOP_K, return_scores=True)
+        host_q = queries[:16].cpu().numpy().view(np.uint32)
+        rng = np.random.RandomState(b)
+        for qi, row in enumerate(scored):
+            key, score = row[rng.randint(len(row))]
+            want = bBitMinHash(_Sketch(host_q[qi]), b).jaccard(
+                bBitMinHash(_Sketch(sigs[key]), b))
+            check(score == want, "bbit-1m b %d: score %r of (%d, %d), bBitMinHash %r"
+                  % (b, score, qi, key, want))
+        removed = list(dict.fromkeys(r[0] for r in rows))[:n_remove]
+        index.remove_batch(removed)
+        gone = set(removed)
+        after = index.query_batch(queries, TOP_K)
+        check(not any(key in gone for row in after for key in row),
+              "bbit-1m b %d: a removed key came back" % b)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bbit")
+            index.save(path)
+            loaded = TorchBBitIndex.load(path, device=self.device)
+        check(loaded.query_batch(queries, TOP_K, return_scores=True)
+              == index.query_batch(queries, TOP_K, return_scores=True),
+              "bbit-1m b %d: the loaded index answers otherwise" % b)
+        status = index.status()
+        check(status["compression_x"] == 32 // bbit_ops.slot_size(b),
+              "bbit-1m b %d: compression_x %r" % (b, status["compression_x"]))
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        self.bbit[b] = {"build_s": build_s, "qps": qps, "recall": rec, "peak": peak}
+        log("[bbit-1m] b %d: %d rows inserted from the device tensor in %.3f s; query_batch "
+            "k=%d %.1f q/s, recall %.4f; %d queries equal the plain version, 16 scores equal "
+            "bBitMinHash; %d removed keys never return; save/load answers equal; status %s; "
+            "peak device memory %s B" % (b, n, build_s, TOP_K, qps, rec, m, len(removed),
+                                        json.dumps(status), peak))
+
+    def build_bbit_16m(self, n_rows: int = BBIT_ROWS, chunk: int = BBIT_CHUNK,
+                       n_queries: int = N_QUERIES, seed: int = 19):
+        """The bbit-16m index: ``synth_signatures``' law drawn on the card
+        chunk by chunk (uniform 32-bit values; the last 20 % copy each slot
+        of an earlier row with a per-row probability U(0.6, 0.95)), each
+        chunk inserted into a b = 1 index as a device tensor. Returns
+        (index, the last ``n_queries`` rows as planted queries, their
+        sources, synced build s, host s inside ``insert_batch``, peak
+        device bytes while building)."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchBBitIndex
+
+        dev, cuda = self.device, self.device.type == "cuda"
+        g = torch.Generator(device=dev).manual_seed(seed)
+        n_dup = int(n_rows * 0.2)
+        first = n_rows - n_dup
+        src = torch.randint(0, first, (n_dup,), generator=g, device=dev)
+        keep_p = torch.rand(n_dup, generator=g, device=dev) * 0.35 + 0.6
+        full = torch.empty((n_rows, NUM_PERM), dtype=torch.int32, device=dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        index = TorchBBitIndex(b=1, num_perm=NUM_PERM, device=dev)
+        host_s = 0.0
+        self.sync()
+        t_all = time.perf_counter()
+        for r0 in range(0, n_rows, chunk):
+            r1 = min(n_rows, r0 + chunk)
+            rows = full[r0:r1]
+            rows.random_(-(1 << 31), 1 << 31, generator=g)
+            if r1 > first:  # sources lie below ``first``: written already
+                lo = max(r0, first)
+                i = torch.arange(lo - first, r1 - first, device=dev)
+                keep = torch.rand((r1 - lo, NUM_PERM), generator=g, device=dev) < \
+                    keep_p[i][:, None]
+                rows[lo - r0:] = torch.where(keep, full[src[i]], rows[lo - r0:])
+            t0 = time.perf_counter()
+            index.insert_batch(range(r0, r1), rows)
+            host_s += time.perf_counter() - t0
+        self.sync()
+        build_s = time.perf_counter() - t_all
+        build_peak = torch.cuda.max_memory_allocated() if cuda else None
+        queries = full[n_rows - n_queries:].clone()
+        expect = src[-n_queries:].cpu().numpy()
+        return index, queries, expect, build_s, host_s, build_peak
+
+    def phase_bbit_16m(self, n_rows: int = BBIT_ROWS, chunk: int = BBIT_CHUNK,
+                       n_queries: int = N_QUERIES, n_plain: int = 16) -> None:
+        """bbit-16m: :meth:`build_bbit_16m`, then the planted queries by
+        ``query_batch`` k = 10 and ``n_plain`` of them against the plain
+        version."""
+        torch = self.torch
+        from datasketch_tpu_torch.kernels.bbit import bbit_counts_plain
+        from datasketch_tpu_torch.ops import bbit_ops
+
+        cuda = self.device.type == "cuda"
+        index, queries, expect, build_s, host_s, build_peak = self.build_bbit_16m(
+            n_rows, chunk, n_queries)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        qps, rows = self.timed_qps(lambda: index.query_batch(queries, TOP_K), n_queries)
+        rec = float(np.mean([int(e) in row for e, row in zip(expect, rows)]))
+        check(rec >= 0.98, "bbit-16m: recall %.4f < 0.98" % rec)
+        ids, cnt = index._query_dispatch(queries[:n_plain], TOP_K)
+        p_ids, p_cnt = bbit_ops.bbit_topk_scan(
+            index._packed, bbit_ops.pack_bbit(queries[:n_plain], 1), TOP_K, 1, NUM_PERM,
+            counts_fn=bbit_counts_plain)
+        check(torch.equal(ids, p_ids) and torch.equal(cnt, p_cnt),
+              "bbit-16m: ids / counts differ from the plain version")
+        serve_peak = torch.cuda.max_memory_allocated() if cuda else None
+        self.bbit16 = {"build_s": build_s, "host_s": host_s, "qps": qps, "recall": rec,
+                       "build_peak": build_peak, "serve_peak": serve_peak}
+        log("[bbit-16m] %d rows (b 1, %d B packed) inserted in %d chunks: %.3f s synced, of "
+            "which %.3f s host time in insert_batch (key maps, validation; the device work "
+            "is queued); query_batch k=%d %.1f q/s, recall %.4f; %d queries equal the plain "
+            "version; peak device memory %s B while building (the raw signatures held), "
+            "%s B while serving" % (n_rows, index._packed.numel() * 4, -(-n_rows // chunk),
+                                    build_s, host_s, TOP_K, qps, rec, n_plain, build_peak,
+                                    serve_peak))
+
+    # -------------------------------------------------------------- text
+
+    def phase_text(self, n_docs: int = SIG_DOCS, n_queries: int = N_QUERIES,
+                   cpu_texts: int = 1024, n_tok_docs: int = 4096) -> None:
+        """text-16k: the bench corpus as raw texts (tokens joined by b" "),
+        k = 9 shingles. ``MinHash.bulk_from_text`` with both engines against
+        a ``device="cpu"`` run (and the SHA1 engine against ``hashlib``),
+        ``TorchMinHashLSH.index_text`` / ``top_k_text`` (scan and bands) and
+        ``TorchBBitIndex(b=4).insert_text`` / ``query_batch`` on queries
+        whose last 100 bytes are replaced, then the token front ends
+        against a ``device="cpu"`` index."""
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash, TorchBBitIndex, TorchMinHashLSH
+        from datasketch_tpu_torch.ops.minhash_ops import init_permutations
+
+        texts = [b" ".join(doc) for doc in make_corpus(n_docs, seed=42)]
+        rng = np.random.RandomState(45)
+        self.text_rate = {}
+        sample = np.sort(rng.choice(n_docs, min(cpu_texts, n_docs), replace=False))
+        for engine, kw in (("device", {"hashfunc": "device"}), ("sha1", {})):
+            MinHash.bulk_from_text(texts[:1024], k=9, num_perm=NUM_PERM, out="device",
+                                   device=self.device, **kw)  # warm the allocator
+            rates = []
+            for _ in range(2):
+                self.sync()
+                t0 = time.perf_counter()
+                sigs = MinHash.bulk_from_text(texts, k=9, num_perm=NUM_PERM, out="device",
+                                              device=self.device, **kw)
+                self.sync()
+                rates.append(n_docs / (time.perf_counter() - t0))
+            self.text_rate[engine] = max(rates)
+            want = MinHash.bulk_from_text([texts[i] for i in sample], k=9, num_perm=NUM_PERM,
+                                          device="cpu", **kw)
+            got = sigs[torch.from_numpy(sample).to(self.device)].cpu().numpy().view(np.uint32)
+            check(np.array_equal(got, want),
+                  "bulk_from_text(%s): the card differs from the CPU run" % engine)
+            log("[text-16k] bulk_from_text %-6s %d texts (%d bytes): %s texts/s; %d sampled "
+                "texts equal a device='cpu' run" % (
+                    engine, n_docs, sum(map(len, texts)),
+                    " / ".join("%.1f" % r for r in rates), sample.size))
+        a, b = init_permutations(1, NUM_PERM)
+        host = sigs.cpu().numpy().view(np.uint32)  # the SHA1 engine's
+        for i in rng.choice(n_docs, 32, replace=False):
+            t = texts[i]
+            hv = np.array([int.from_bytes(hashlib.sha1(t[j: j + 9]).digest()[:4], "little")
+                           for j in range(len(t) - 8)], dtype=np.uint64)[:, None]
+            want = np.bitwise_and((hv * a + b) % np.uint64((1 << 61) - 1),
+                                  np.uint64(0xFFFFFFFF)).min(axis=0)
+            check(np.array_equal(host[i], want.astype(np.uint32)),
+                  "bulk_from_text(sha1) row %d differs from hashlib + the host formula" % i)
+        log("[text-16k] 32 SHA1-engine rows equal hashlib.sha1 + the host numpy formula")
+        del sigs, host
+        lsh = TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=self.device)
+        bb = TorchBBitIndex(b=4, num_perm=NUM_PERM, device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        lsh.index_text(range(n_docs), texts, k=9)
+        self.sync()
+        t_lsh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bb.insert_text(range(n_docs), texts, k=9)
+        self.sync()
+        t_bb = time.perf_counter() - t0
+        src = rng.choice(n_docs, min(n_queries, n_docs), replace=False)
+        queries = [texts[i][:-100] + bytes(rng.randint(97, 123, 100, dtype=np.uint8))
+                   for i in src]
+        self.text_qps = {}
+        calls = {
+            "top_k_text scan": lambda: lsh.top_k_text(queries, TOP_K, method="scan"),
+            "top_k_text bands": lambda: lsh.top_k_text(queries, TOP_K, method="bands"),
+            "b-bit query_batch": lambda: bb.query_batch(MinHash.bulk_from_text(
+                queries, k=9, num_perm=NUM_PERM, hashfunc="device", out="device",
+                device=self.device), TOP_K),
+        }
+        for label, fn in calls.items():
+            qps, rows = self.timed_qps(fn, len(queries))
+            keys = [[kk for kk, _ in row] if label.startswith("top_k") else row for row in rows]
+            rec = float(np.mean([int(s) in row for s, row in zip(src, keys)]))
+            self.text_qps[label] = (qps, rec)
+            log("[text-16k] %-17s %10.1f q/s (texts in, shingles hashed on the card) recall "
+                "%.4f" % (label, qps, rec))
+            check(rec >= 0.99, "text-16k %s: recall %.4f < 0.99" % (label, rec))
+        self.text_build = (t_lsh, t_bb)
+        log("[text-16k] index_text %.3f s, insert_text (b 4) %.3f s" % self.text_build)
+        docs = make_token_sets(torch, n_tok_docs, self.device, seed=44)
+        pair = [TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=d)
+                for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index_tokens(range(len(docs)), docs)
+        q_docs = [d[: max(1, len(d) * 3 // 4)] for d in docs[:256]]
+        for method in ("scan", "bands"):
+            got = [ix.top_k_tokens(q_docs, TOP_K, method=method) for ix in pair]
+            check(got[0] == got[1], "top_k_tokens(%s): card and CPU differ" % method)
+        log("[text-16k] index_tokens / top_k_tokens of %d token docs: the card answers as "
+            "a device='cpu' index (scan, bands)" % len(docs))
+
+    def timed_qps(self, fn, n_queries: int, reps: int = 3):
+        """(best q/s over ``reps`` synced calls after a warm one, the last
+        answer)."""
+        fn()
+        best, out = 0.0, None
+        for _ in range(reps):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn()
+            self.sync()
+            best = max(best, n_queries / (time.perf_counter() - t0))
+        return best, out
+
+
+class _Sketch:
+    """The two attributes ``bBitMinHash`` reads of a MinHash."""
+
+    def __init__(self, hashvalues, seed: int = 1):
+        self.hashvalues = np.asarray(hashvalues, dtype=np.uint64)
+        self.seed = seed
+
 
 def make_weighted_rows(torch, n_rows: int, dim: int, device, seed: int,
                        density: float = 0.02, chunk: int = 8192):
@@ -1139,6 +1499,8 @@ def main() -> int:
         log("[kernels] each kernel against its plain version on the card")
         smoke.phase_kernels()
         smoke.phase_kernels_cws()
+        smoke.phase_kernels_bbit()
+        torch.cuda.empty_cache()
         kmods = {k["name"]: smoke.kmod(k["name"]) for k in KERNELS}
 
         def counts():
@@ -1158,10 +1520,21 @@ def main() -> int:
         del index
         torch.cuda.empty_cache()
         smoke.phase_facade_parity(sigs)
-        del sigs
         log("[launches] LSH main path (phases 4-6): %s" % json.dumps(lsh_counts))
         for kname in LSH_PATH:
             check(lsh_counts[kname] > 0, "kernel %s was not launched on the LSH path" % kname)
+        zero_counts()
+        for b in (1, 4):
+            smoke.phase_bbit(sigs, src, dst, b)
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        bbit_counts = counts()
+        del sigs
+        log("[bbit-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.bbit)))
+        log("[launches] bbit-1m path: %s" % json.dumps(bbit_counts))
+        for kname in BBIT_PATH:
+            check(bbit_counts[kname] > 0, "kernel %s was not launched on the bbit-1m path"
+                  % kname)
 
         docs, queries, qsrc = smoke.phase_ensemble_corpus()
         zero_counts()
@@ -1198,8 +1571,31 @@ def main() -> int:
         for kname in WEIGHTED_PATH:
             check(w_counts[kname] > 0,
                   "kernel %s was not launched on the weighted path" % kname)
-        launches = {name: lsh_counts[name] + ens_counts[name] + w_counts[name]
-                    for name in lsh_counts}
+        del gen
+        torch.cuda.empty_cache()
+        zero_counts()
+        smoke.phase_bbit_16m()
+        torch.cuda.synchronize()
+        b16_counts = counts()
+        torch.cuda.empty_cache()
+        log("[bbit-16m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.bbit16)))
+        log("[launches] bbit-16m path: %s" % json.dumps(b16_counts))
+        zero_counts()
+        smoke.phase_text()
+        torch.cuda.synchronize()
+        text_counts = counts()
+        log("[text-16k] %s: texts/s %s, q/s and recall %s, builds %s s"
+            % (nvidia_smi_line(), json.dumps(smoke.text_rate), json.dumps(smoke.text_qps),
+               json.dumps(smoke.text_build)))
+        log("[launches] text-16k path: %s" % json.dumps(text_counts))
+        for kname in BBIT_PATH:
+            check(b16_counts[kname] > 0, "kernel %s was not launched on the bbit-16m path"
+                  % kname)
+        for kname in TEXT_PATH + BBIT_PATH:
+            check(text_counts[kname] > 0, "kernel %s was not launched on the text path"
+                  % kname)
+        paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts)
+        launches = {name: sum(c[name] for c in paths) for name in lsh_counts}
         report = []
         for k in KERNELS:
             rec = smoke.record[k["name"]]

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble and
-weighted MinHash (CWS) serving paths.
+"""PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble,
+weighted MinHash (CWS) and b-bit MinHash serving paths, with the raw-text
+and token-id front ends.
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -14,7 +15,9 @@ Importing this package creates no CUDA context and builds nothing: the
 kernels compile with ``nvcc`` at first use on the card.
 """
 
+from datasketch_tpu_torch.models.b_bit_minhash import bBitMinHash
 from datasketch_tpu_torch.models.minhash import MinHash
+from datasketch_tpu_torch.models.torch_bbit import TorchBBitIndex
 from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
 from datasketch_tpu_torch.models.weighted_minhash import (
@@ -23,7 +26,9 @@ from datasketch_tpu_torch.models.weighted_minhash import (
 )
 
 __all__ = [
+    "bBitMinHash",
     "MinHash",
+    "TorchBBitIndex",
     "TorchMinHashLSH",
     "TorchMinHashLSHEnsemble",
     "WeightedMinHash",

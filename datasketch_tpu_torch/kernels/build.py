@@ -59,6 +59,7 @@ _SIGNATURES = {
     "ds_topk_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "ds_cws_dense": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     "ds_cws_sparse": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
+    "ds_bbit_counts": [_P, _P, _I, _L, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

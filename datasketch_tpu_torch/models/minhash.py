@@ -14,6 +14,10 @@ Two token paths, as in the JAX package:
   the card signs chunk i.
 - ``hashfunc="device"``: integer token ids are uploaded raw (as uint8 or
   uint16 when they fit) and mixed with fmix32 inside kernel 1.
+
+Raw text takes the same two engines: SHA1 of every shingle in the native
+module on the host, or the raw bytes uploaded and the shingles hashed on
+the card (``hashfunc="device"``, :mod:`datasketch_tpu_torch.ops.text_ops`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from datasketch_tpu_torch import native
 from datasketch_tpu_torch.device import resolve_device, to_numpy_u32
 from datasketch_tpu_torch.hashfunc import device_hash, sha1_hash32
-from datasketch_tpu_torch.ops import minhash_ops
+from datasketch_tpu_torch.ops import minhash_ops, text_ops
 
 __all__ = ["MinHash"]
 
@@ -102,6 +106,20 @@ def _sha1_tokens(chunk, dev: torch.device) -> torch.Tensor:
     native.hash_ragged(chunk, out=buf.numpy().view(np.uint32))
     buf = buf[:total]
     return buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
+
+
+def _sha1_shingles(chunk, k: int, width: int, dev: torch.device):
+    """SHA1-low-32 of a chunk's k-byte shingles, padded [B, width] on
+    ``dev`` (``width`` >= every text's shingle count), and the shingle
+    counts int32[B]: hashed straight into pinned memory when ``dev`` is a
+    card."""
+    width = max(1, width)
+    buf = torch.empty(
+        max(1, len(chunk) * width), dtype=torch.int32, pin_memory=dev.type == "cuda"
+    )
+    host, lengths = native.hash_shingles_padded(chunk, k, out=buf.numpy().view(np.uint32))
+    hashes = buf[: host.size].view(host.shape)
+    return (hashes.to(dev, non_blocking=True) if dev.type == "cuda" else hashes), lengths
 
 
 class MinHash:
@@ -186,5 +204,66 @@ class MinHash:
                 flat, _upload(lengths, dev), proto.seed, p,
                 permutations=perms, mix=use_ids,
             )
+            result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
+        return result if out == "device" else to_numpy_u32(result)
+
+    @classmethod
+    def bulk_from_text(cls, texts: Iterable, k: int = 9, scheme: str = "permutation",
+                       out: str = "host", device="cuda", **minhash_kwargs):
+        """Signature matrix of raw byte strings' k-shingle sets, input order.
+
+        Two engines, picked by ``hashfunc``:
+
+        - ``sha1_hash32`` (default): every overlapping k-byte shingle is
+          hashed in C straight out of the text (the native module), then
+          kernel 1 signs the padded batch. Equal to the reference's values.
+        - ``"device"``: the raw text is uploaded and the shingles are
+          hashed on the card (polynomial window roll + fmix32), then
+          kernel 1 signs them in place. Not value-compatible with the SHA1
+          engine (the same estimator statistics).
+
+        Args:
+            texts: bytes or str (encoded as UTF-8) documents.
+            k: shingle width in bytes.
+            scheme: only ``"permutation"`` is ported.
+            out: ``"host"`` (uint32 numpy) or ``"device"`` (int32 tensor
+                on ``device``).
+            device: ``"cuda"`` (default) or ``"cpu"`` (plain versions).
+            **minhash_kwargs: as for :class:`MinHash`.
+
+        Returns uint32[N, num_perm]; a text shorter than k gives the
+        empty-sketch row (all MAX_HASH). Equal to hashing
+        ``[text[i:i+k] for i in range(len(text)-k+1)]`` per text.
+        """
+        if out not in ("host", "device"):
+            raise ValueError("out must be 'host' or 'device'")
+        if scheme != "permutation":
+            raise ValueError("only scheme='permutation' is ported, got %r" % (scheme,))
+        if k <= 0:
+            raise ValueError("k must be positive")
+        dev = resolve_device(device)
+        proto = cls(**minhash_kwargs)
+        texts = texts if isinstance(texts, list) else list(texts)
+        texts = [t.encode("utf-8") if isinstance(t, str) else t for t in texts]
+        n, p = len(texts), proto.num_perm
+        result = torch.empty((n, p), dtype=torch.int32, device=dev)
+        perms = proto._custom_permutations()
+        order = sorted(range(n), key=lambda i: len(texts[i]))
+        counts = [max(0, len(texts[i]) - k + 1) for i in order]
+        for start, stop in _budget_chunks(counts):
+            idx = order[start:stop]
+            chunk = [texts[i] for i in idx]
+            if proto.hashfunc is device_hash:
+                lengths = np.fromiter(map(len, chunk), np.int32, count=len(chunk))
+                flat = np.frombuffer(bytearray().join(chunk), dtype=np.uint8)
+                sigs = text_ops.shingle_signatures_ragged(
+                    _upload(flat, dev), _upload(lengths, dev), k, proto.seed, p,
+                    permutations=perms,
+                )
+            else:
+                hashes, lengths = _sha1_shingles(chunk, k, counts[stop - 1], dev)
+                sigs = minhash_ops.compute_signatures(
+                    hashes, _upload(lengths, dev), proto.seed, p, permutations=perms,
+                )
             result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
         return result if out == "device" else to_numpy_u32(result)

@@ -21,7 +21,7 @@ import torch
 
 from datasketch_tpu_torch.device import as_sig_tensor, resolve_device
 from datasketch_tpu_torch.models.lsh_params import optimal_param
-from datasketch_tpu_torch.models.minhash import pow2_at_least
+from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.ops.cws_ops import kt_slots, kt_slots_np
 
@@ -162,6 +162,58 @@ class TorchMinHashLSH:
             self._key_to_pos[k] = base + i
         self._keys.extend(keys)
         self._append(sigs)
+
+    def index_tokens(self, keys: Sequence[Hashable], token_docs, seed: int = 1,
+                     scheme: str = "permutation") -> None:
+        """Bulk-build from pre-tokenized integer documents: the ids are
+        uploaded raw and hashed on the card (fmix32 inside kernel 1,
+        ``hashfunc="device"``). Query with sketches built the same way at
+        equal seed (:meth:`query_tokens`, :meth:`top_k_tokens`)."""
+        sigs = MinHash.bulk_signatures(
+            token_docs, scheme=scheme, num_perm=self.h, seed=seed, hashfunc="device",
+            out="device", device=self.device,
+        )
+        self.index(keys, sigs)
+
+    def index_text(self, keys: Sequence[Hashable], texts, k: int = 9, seed: int = 1) -> None:
+        """Bulk-build from raw text: the bytes are uploaded and every
+        overlapping k-byte shingle is hashed on the card
+        (:mod:`datasketch_tpu_torch.ops.text_ops`). Query with
+        :meth:`query_text` / :meth:`top_k_text` at equal ``(k, seed)``."""
+        if len(keys) != len(texts):
+            raise ValueError("keys and texts must have equal length")
+        self.index(keys, self._text_query_sigs(texts, k, seed))
+
+    def _token_query_sigs(self, token_docs, seed: int) -> torch.Tensor:
+        return MinHash.bulk_signatures(
+            token_docs, num_perm=self.h, seed=seed, hashfunc="device", out="device",
+            device=self.device,
+        )
+
+    def _text_query_sigs(self, texts, shingle_k: int, seed: int) -> torch.Tensor:
+        return MinHash.bulk_from_text(
+            texts, k=shingle_k, num_perm=self.h, seed=seed, hashfunc="device",
+            out="device", device=self.device,
+        )
+
+    def query_tokens(self, token_docs, seed: int = 1, **kwargs) -> list:
+        """Threshold query from pre-tokenized integer documents (the query
+        side of :meth:`index_tokens`); kwargs pass to :meth:`query_batch`."""
+        return self.query_batch(self._token_query_sigs(token_docs, seed), **kwargs)
+
+    def top_k_tokens(self, token_docs, k: int, seed: int = 1, **kwargs) -> list:
+        """Top-k from pre-tokenized integer documents; kwargs pass to
+        :meth:`top_k`."""
+        return self.top_k(self._token_query_sigs(token_docs, seed), k, **kwargs)
+
+    def query_text(self, texts, shingle_k: int = 9, seed: int = 1, **kwargs) -> list:
+        """Threshold query from raw texts (the query side of
+        :meth:`index_text`); kwargs pass to :meth:`query_batch`."""
+        return self.query_batch(self._text_query_sigs(texts, shingle_k, seed), **kwargs)
+
+    def top_k_text(self, texts, k: int, shingle_k: int = 9, seed: int = 1, **kwargs) -> list:
+        """Top-k from raw texts; kwargs pass to :meth:`top_k`."""
+        return self.top_k(self._text_query_sigs(texts, shingle_k, seed), k, **kwargs)
 
     def insert(self, key: Hashable, minhash, check_duplication: bool = True) -> None:
         """Insert one (key, signature); buffered until the next query."""

@@ -22,7 +22,7 @@ import numpy as np
 
 from datasketch_tpu_torch.kernels.build import BUILD_DIR
 
-__all__ = ["ALGO_SHA1_32", "load", "hash_ragged"]
+__all__ = ["ALGO_SHA1_32", "load", "hash_ragged", "hash_shingles_padded"]
 
 ALGO_SHA1_32 = 0
 
@@ -102,3 +102,30 @@ def hash_ragged(docs, out: np.ndarray = None):
     flat = out[:total]
     load().hash_ragged(docs, flat, starts, ALGO_SHA1_32, 0)
     return flat, lengths
+
+
+def hash_shingles_padded(texts, k: int, out: np.ndarray):
+    """SHA1-low-32 of every overlapping k-byte shingle of each text, hashed
+    in C straight out of the text buffers (the JAX package's
+    ``corpus.hash_shingles_padded`` without its padding to a multiple).
+
+    Args:
+        texts: sequence of bytes-like texts.
+        k: shingle width in bytes.
+        out: writable uint32 buffer of at least ``B * T`` slots (e.g. the
+            numpy view of a pinned tensor).
+
+    Returns:
+        (hashes uint32[B, T] -- a view of ``out``, lengths
+        int32[B]): row d holds text d's ``max(0, len - k + 1)`` shingle
+        hashes; T is the largest such count (at least 1), and the slots
+        past a row's length are left as they were.
+    """
+    n = len(texts)
+    lengths = np.fromiter((max(0, len(t) - k + 1) for t in texts), np.int32, count=n)
+    t = max(1, int(lengths.max()) if n else 1)
+    if out.dtype != np.uint32 or out.size < n * t:
+        raise ValueError("out must be uint32 with room for %d slots" % (n * t))
+    hashes = out.reshape(-1)[: n * t].reshape(n, t)
+    load().hash_shingles(texts, hashes, t, k, ALGO_SHA1_32, 0)
+    return hashes, lengths

@@ -10,9 +10,10 @@ is arithmetic, so every shift is masked.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["MERSENNE_PRIME", "MAX_HASH", "mix32", "permute_hash"]
+__all__ = ["MERSENNE_PRIME", "MAX_HASH", "mix32", "mix32_np", "permute_hash"]
 
 MERSENNE_PRIME = (1 << 61) - 1
 MAX_HASH = (1 << 32) - 1
@@ -27,6 +28,17 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = (x * 0xC2B2AE35) & _LOW32
     return x ^ (x >> 16)
+
+
+def mix32_np(x) -> np.ndarray:
+    """Host NumPy twin of :func:`mix32` on uint32 arrays, bit-identical (a
+    copy of the JAX package's)."""
+    x = np.asarray(x).astype(np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = np.multiply(x, np.uint32(0x85EBCA6B), dtype=np.uint32)
+    x = x ^ (x >> np.uint32(13))
+    x = np.multiply(x, np.uint32(0xC2B2AE35), dtype=np.uint32)
+    return x ^ (x >> np.uint32(16))
 
 
 def permute_hash(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

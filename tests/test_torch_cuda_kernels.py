@@ -13,12 +13,13 @@ import torch
 
 from datasketch_tpu_torch import (
     MinHash,
+    TorchBBitIndex,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
     WeightedMinHashGenerator,
 )
-from datasketch_tpu_torch.kernels import cws, lsh_scan, minhash_sign, rerank, score
-from datasketch_tpu_torch.ops import cws_ops, lsh_ops
+from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.ops import bbit_ops, cws_ops, lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
 pytestmark = pytest.mark.cuda
@@ -281,3 +282,50 @@ def test_cws_sparse_rejects_bad_csr(dev):
         with pytest.raises(ValueError):
             cws.cws_sparse(*args, *tables)
     assert cws.launches_sparse == before
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("num_perm", [128, 100, 256])
+def test_bbit_kernel_matches_plain(dev, b, num_perm):
+    """Kernel 5 against its plain twin: every slot size, padding slots
+    (num_perm 100), W up to 256, ragged Q and T, low-cardinality bits."""
+    s = bbit_ops.slot_size(b)
+    sigs = _sigs(dev, 1000 + 40, num_perm, b, values=4)
+    packed = bbit_ops.pack_bbit(sigs, b)
+    db, q = packed[:1000], packed[1000:]
+    q[0] = db[17]
+    for nq, nt in ((1, 1), (33, 1000), (40, 33), (1, 1000)):
+        got = _launched(bbit, lambda: bbit.bbit_counts(q[:nq], db[:nt], s))
+        want = bbit.bbit_counts_plain(q[:nq], db[:nt], s)
+        assert torch.equal(got, want)
+    full = bbit_ops.match_counts(q, db, b, num_perm)
+    assert int(full[0, 17]) == num_perm
+
+
+def test_cuda_bbit_index_matches_cpu_index(dev):
+    rng = np.random.RandomState(12)
+    sigs = rng.randint(0, 1 << 32, size=(5000, 128), dtype=np.uint64).astype(np.uint32)
+    sigs[4000:] = np.where(rng.rand(1000, 128) < 0.7, sigs[:1000], sigs[4000:])
+    queries = sigs[3950:4050]
+    for b in (1, 4):
+        pair = [TorchBBitIndex(b=b, num_perm=128, device=d) for d in (dev, "cpu")]
+        for ix in pair:
+            ix.insert_batch(range(4000), sigs[:4000])
+            ix.insert_batch(range(4000, 5000), torch.from_numpy(sigs[4000:].view(np.int32)))
+            ix.remove_batch(range(0, 5000, 13))
+        for k in (1, 10, 300):
+            got = [ix.query_batch(queries, k, return_scores=True) for ix in pair]
+            assert got[0] == got[1]
+        got = [list(ix.query_stream([queries[:30], queries[30:]], 5)) for ix in pair]
+        assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("hashfunc", ["sha1", "device"])
+def test_bulk_from_text_on_the_card_matches_cpu(dev, hashfunc):
+    rng = np.random.RandomState(13)
+    texts = [bytes(rng.randint(97, 110, rng.randint(0, 3000), dtype=np.uint8))
+             for _ in range(700)]
+    kw = {} if hashfunc == "sha1" else {"hashfunc": "device"}
+    got = MinHash.bulk_from_text(texts, k=9, out="device", device=dev, **kw)
+    want = MinHash.bulk_from_text(texts, k=9, out="device", device="cpu", **kw)
+    assert torch.equal(got.cpu(), want)

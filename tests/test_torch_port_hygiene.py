@@ -11,12 +11,13 @@ import torch
 
 from datasketch_tpu_torch import (
     MinHash,
+    TorchBBitIndex,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
     WeightedMinHashGenerator,
 )
 from datasketch_tpu_torch.device import resolve_device
-from datasketch_tpu_torch.kernels import cws, lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
 
 torch.set_num_threads(2)
 
@@ -29,12 +30,13 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "import datasketch_tpu_torch",
         "from datasketch_tpu_torch import native, hashfunc, device, persist",
         "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops, cws_ops",
+        "from datasketch_tpu_torch.ops import bbit_ops, text_ops",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
         "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
-        "from datasketch_tpu_torch.models import weighted_minhash",
+        "from datasketch_tpu_torch.models import weighted_minhash, b_bit_minhash, torch_bbit",
         "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
-        "from datasketch_tpu_torch.kernels import score",
-        "from datasketch_tpu_torch.utils import profiling",
+        "from datasketch_tpu_torch.kernels import bbit, score",
+        "from datasketch_tpu_torch.utils import pipeline, profiling",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'datasketch_tpu'))",
         "assert not bad, bad",
@@ -59,6 +61,10 @@ def test_cuda_without_a_card_raises():
         TorchMinHashLSHEnsemble(threshold=0.8, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         WeightedMinHashGenerator(100, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchBBitIndex(b=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MinHash.bulk_from_text([b"abcdefghijk"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -77,7 +83,7 @@ def _meta(shape, dtype=torch.int32):
 
 
 @pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "containment_topk",
-                                  "rerank", "score", "cws_dense", "cws_sparse"])
+                                  "rerank", "score", "bbit", "cws_dense", "cws_sparse"])
 def test_wrapper_on_other_device_raises(name):
     """A tensor that is neither on the CPU nor on a card never takes the
     plain version (which would happily run on 'meta')."""
@@ -91,6 +97,7 @@ def test_wrapper_on_other_device_raises(name):
         "rerank": lambda: rerank.rerank_scores(_meta((64, 128)), _meta((3, 128)),
                                                _meta((3, 7))),
         "score": lambda: score.score_matrix(_meta((3, 128)), _meta((64, 128))),
+        "bbit": lambda: bbit.bbit_counts(_meta((3, 4)), _meta((64, 4)), 1),
         "cws_dense": lambda: cws.cws_dense(_meta((3, 50), torch.float32),
                                            *[_meta((50, 128), torch.float32)] * 3),
         "cws_sparse": lambda: cws.cws_sparse(
@@ -100,7 +107,8 @@ def test_wrapper_on_other_device_raises(name):
 
     def counters():
         return (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
-                rerank.launches, score.launches, cws.launches, cws.launches_sparse)
+                rerank.launches, score.launches, bbit.launches, cws.launches,
+                cws.launches_sparse)
 
     before = counters()
     with pytest.raises(ValueError, match="CUDA device"):

@@ -2,10 +2,11 @@
 
 The plain PyTorch versions stand in for the kernels, so a change that
 breaks the script's signatures -> index -> serving -> facade-parity checks,
-its ensemble phases or its weighted (CWS) phases fails here before it
-reaches a card.
+its ensemble phases, its weighted (CWS) phases, its b-bit phases or its
+text phase fails here before it reaches a card.
 """
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -40,3 +41,24 @@ def test_smoke_weighted_phases_on_cpu():
     gen, kt = smoke.phase_weighted(x, q, src, cpu_rows=64, dense_rows=40)
     assert set(smoke.w_qps) == {"top_k scan", "top_k bands", "query_batch 0.5 bands"}
     smoke.phase_weighted_checks(gen, x, kt, n_sets=1000, n_pairs=1 << 14)
+
+
+def test_smoke_bbit_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    smoke.phase_kernels_bbit(n_rows=3000, n_queries=40, ragged=(1, 33, 100))
+    assert smoke.record["bbit_scores"]["bound_by"] in ("bytes", "operations")
+    head = np.random.RandomState(1).randint(0, 1 << 32, (100, chip_smoke.NUM_PERM),
+                                            dtype=np.uint64).astype(np.uint32)
+    sigs, src, dst, _ = chip_smoke.synth_index(4096, head)
+    for b in (1, 4):
+        smoke.phase_bbit(sigs, src, dst, b, n_queries=48, n_remove=20)
+    assert set(smoke.bbit) == {1, 4} and smoke.bbit[1]["recall"] >= 0.99
+    smoke.phase_bbit_16m(n_rows=8192, chunk=2048, n_queries=48, n_plain=8)
+    assert smoke.bbit16["recall"] >= 0.98
+
+
+def test_smoke_text_phase_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    smoke.phase_text(n_docs=100, n_queries=16, cpu_texts=16, n_tok_docs=200)
+    assert set(smoke.text_rate) == {"device", "sha1"}
+    assert all(rec >= 0.99 for _, rec in smoke.text_qps.values())

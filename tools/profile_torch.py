@@ -5,9 +5,10 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 tools/profile_torch.py [CELL ...]
 
-CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``
-(default: all, in that order; ``lsh-1m`` indexes the signatures of
-``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
+CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
+``bbit-1m``, ``bbit-16m``, ``text-16k`` (default: all, in that order;
+``lsh-1m`` and ``bbit-1m`` index the signatures of ``sign-16k``'s corpus, as
+``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
 ``torch.profiler`` (CPU and CUDA activity) over 3 calls after a warm one
 (builds: 1 call after a warm one):
@@ -20,7 +21,16 @@ CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``
   1,024 subset queries by scan and bands;
 - weighted-1m: ``minhash_many`` of 1,048,576 CSR rows (kernel 7) and of the
   first 16,384 rows densified (kernel 6), the index build, ``top_k`` k = 5
-  by scan and bands and threshold ``query_batch`` by bands.
+  by scan and bands and threshold ``query_batch`` by bands;
+- bbit-1m: the lsh-1m rows in a ``TorchBBitIndex`` at b = 1 and b = 4
+  (``insert_batch`` of the device tensor), ``query_batch`` k = 10 of 1,024
+  planted queries;
+- bbit-16m: ``query_batch`` k = 10 of 1,024 planted queries over
+  16,777,216 rows at b = 1 (built as ``chip_smoke.py`` builds it);
+- text-16k: ``MinHash.bulk_from_text`` of the 16,384 texts with the on-card
+  and the SHA1 engine, ``TorchMinHashLSH.index_text``, ``top_k_text`` k =
+  10 by scan and bands, and the b = 4 index's ``query_batch`` of the
+  queries' on-card sketches.
 
 Each step prints one JSON line: wall ms per call (host clock, synced),
 device ms per call (the union of the CUDA kernel and copy intervals), the
@@ -36,7 +46,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m")
+CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
+         "text-16k")
 
 
 def device_time(prof):
@@ -180,6 +191,71 @@ def profile_weighted(torch, chip_smoke, dev, smoke):
              lambda: index.query_batch(q_kt, return_scores=True, method="bands"))
 
 
+def profile_bbit(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import TorchBBitIndex
+
+    n = chip_smoke.N_INDEX
+    sigs, src, dst, _ = chip_smoke.synth_index(n, real)
+    dev_sigs = torch.from_numpy(sigs.view("int32")).to(dev)
+    nq, k = chip_smoke.N_QUERIES, chip_smoke.TOP_K
+    queries = dev_sigs[torch.from_numpy(dst[-nq:]).to(dev)]
+    for b in (1, 4):
+        def build_index(b=b):
+            index = TorchBBitIndex(b=b, num_perm=chip_smoke.NUM_PERM, device=dev)
+            index.insert_batch(range(n), dev_sigs)
+            return index
+
+        index = profiled(torch, "b-bit insert_batch %d rows b=%d" % (n, b), build_index, reps=1)
+        rows = profiled(torch, "b-bit query_batch k=%d b=%d" % (k, b),
+                        lambda: index.query_batch(queries, k))
+        print(json.dumps({"recall": recall(src[-nq:], rows, scored=False)}), flush=True)
+        del index
+        torch.cuda.empty_cache()
+
+
+def profile_bbit_16m(torch, chip_smoke, dev, smoke):
+    index, queries, expect = smoke.build_bbit_16m()[:3]
+    torch.cuda.empty_cache()
+    rows = profiled(torch, "b-bit query_batch k=%d b=1, %d rows"
+                    % (chip_smoke.TOP_K, len(index)),
+                    lambda: index.query_batch(queries, chip_smoke.TOP_K))
+    print(json.dumps({"recall": recall(expect, rows, scored=False)}), flush=True)
+
+
+def profile_text(torch, chip_smoke, dev):
+    import numpy as np
+
+    from datasketch_tpu_torch import MinHash, TorchBBitIndex, TorchMinHashLSH
+
+    texts = [b" ".join(doc) for doc in chip_smoke.make_corpus(chip_smoke.SIG_DOCS, seed=42)]
+    p, k = chip_smoke.NUM_PERM, chip_smoke.TOP_K
+    for engine, kw in (("device", {"hashfunc": "device"}), ("sha1", {})):
+        profiled(torch, "bulk_from_text %s %d texts" % (engine, len(texts)),
+                 lambda kw=kw: MinHash.bulk_from_text(texts, k=9, num_perm=p, out="device",
+                                                      device=dev, **kw))
+
+    def build_index():
+        index = TorchMinHashLSH(threshold=0.5, num_perm=p, device=dev)
+        index.index_text(range(len(texts)), texts, k=9)
+        return index
+
+    lsh = profiled(torch, "index_text %d texts" % len(texts), build_index, reps=1)
+    bb = TorchBBitIndex(b=4, num_perm=p, device=dev)
+    bb.insert_text(range(len(texts)), texts, k=9)
+    rng = np.random.RandomState(45)
+    src = rng.choice(len(texts), chip_smoke.N_QUERIES, replace=False)
+    queries = [texts[i][:-100] + bytes(rng.randint(97, 123, 100, dtype=np.uint8)) for i in src]
+    for method in ("scan", "bands"):
+        rows = profiled(torch, "top_k_text k=%d %s" % (k, method),
+                        lambda m=method: lsh.top_k_text(queries, k, method=m))
+        print(json.dumps({"recall": recall(src, rows)}), flush=True)
+    q_sigs = MinHash.bulk_from_text(queries, k=9, num_perm=p, hashfunc="device", out="device",
+                                    device=dev)
+    rows = profiled(torch, "b-bit (b=4) query_batch k=%d of text sketches" % k,
+                    lambda: bb.query_batch(q_sigs, k))
+    print(json.dumps({"recall": recall(src, rows, scored=False)}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -203,7 +279,8 @@ def main() -> int:
     smoke.phase_build()
     real = None
     for cell in CELLS:
-        if cell not in cells and not (cell == "sign-16k" and "lsh-1m" in cells):
+        needs_real = "lsh-1m" in cells or "bbit-1m" in cells
+        if cell not in cells and not (cell == "sign-16k" and needs_real):
             continue
         print(json.dumps({"cell": cell}), flush=True)
         if cell == "sign-16k":
@@ -212,8 +289,14 @@ def main() -> int:
             profile_lsh(torch, chip_smoke, dev, real)
         elif cell == "ensemble-1m":
             profile_ensemble(torch, chip_smoke, dev, smoke)
-        else:
+        elif cell == "weighted-1m":
             profile_weighted(torch, chip_smoke, dev, smoke)
+        elif cell == "bbit-1m":
+            profile_bbit(torch, chip_smoke, dev, real)
+        elif cell == "bbit-16m":
+            profile_bbit_16m(torch, chip_smoke, dev, smoke)
+        else:
+            profile_text(torch, chip_smoke, dev)
         torch.cuda.empty_cache()
     return 0
 
