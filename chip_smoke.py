@@ -14,12 +14,14 @@ Phases (any failed check raises and the script exits non-zero):
 2. build: the CUDA kernels (nvcc) and the host SHA1 module (g++);
 3. kernel parity: each kernel (kernel 2 in its plain and its sizes mode)
    against its plain PyTorch version on the same CUDA tensors, exact, at
-   the main paths' shapes and ragged edges, timed with CUDA events, with
-   each timed call's bound (bytes over 3.35 TB/s or operations over 67
-   TFLOP/s, the larger) and, where one PyTorch call computes the same
-   function, that call's time; kernel 5 at every slot size, num_perm 128,
-   100 and 256 and ragged shapes, and timed at Q 1,024 x T 1,048,576 at
-   b = 1 and b = 4 beside ``torch.cdist(p=0)``;
+   the main paths' shapes and ragged edges (kernel 2 also at P 66 and 100,
+   Q 1, 33 and 1,000, k 1 and 128, and a table scanned in one split),
+   timed with CUDA events, with each timed call's bound (the largest of
+   bytes over 3.35 TB/s, integer operations over the integer ALU rate and
+   f32 operations over 67 TFLOP/s) and, where one PyTorch call computes
+   the same function, that call's time; kernel 5 at every slot size,
+   num_perm 128, 100 and 256 and ragged shapes, and timed at Q 1,024 x T
+   1,048,576 at b = 1 and b = 4 beside ``torch.cdist(p=0)``;
 4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
    docs x 200 SHA1 tokens), checked against the plain version and a host
    numpy evaluation of the reference formula;
@@ -28,7 +30,9 @@ Phases (any failed check raises and the script exits non-zero):
 6. serving: 1,024-query ``top_k`` (scan, bands, auto; k = 10 and 256),
    threshold ``query_batch`` (bands, scan, and a scan that escalates past
    128 matches), then 1,000 removals and the queries again;
-7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one;
+7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one,
+   and an index built from rows of a device tensor (a list, then single
+   inserts) queried by lists of device rows against the batch index;
 8. launch counts of kernels 1-4 during phases 4-6 (each must be > 0);
 9. ensemble: 1,048,576 integer-token sets (lognormal sizes around 120,
    Zipf(0.8) ids over 50,000) indexed by ``TorchMinHashLSHEnsemble.
@@ -120,6 +124,22 @@ BBIT_CHUNK = 1 << 20
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# integer ALU lanes per SM per clock (16 in each of the SM's 4 partitions);
+# off the card, for a rehearsal, the H100 SXM's SMs and maximum SM clock
+INT_LANES_PER_SM = 64
+H100_SMS, H100_MAX_SM_MHZ = 132, 1980
+# Integer ALU instructions per unit of work, read from the SASS of the
+# kernels' inner loops (``tools/scan_steps.py --sass``). An equal-slot count
+# (kernels 2, 2s, 3 and 4) needs one compare per (query, row, slot): kernel
+# 2's loop issues 129 ISETP per 128 slots and sends the count's add to the
+# FMA pipe as a predicated f32 FADD. Kernel 5's loop spends, per (query,
+# row, word), 2.5 + 2 log2(s) (XOR and mask in LOP3s, a shift and an OR per
+# fold, the POPC, half an IADD3).
+SLOT_INT_OPS = 1.0
+
+
+def bbit_word_int_ops(s: int) -> float:
+    return 2.5 + 2 * math.log2(s)
 
 KERNELS = [
     {
@@ -208,6 +228,7 @@ class Smoke:
                                    "bound_ms": None, "bound_by": None, "library_ms": None}
                        for k in KERNELS}
         self.bbit = {}  # b -> the bbit-1m figures
+        self.int_rate = int_rate(torch, self.device)
 
     # ----------------------------------------------------------- helpers
 
@@ -231,16 +252,20 @@ class Smoke:
 
         device_sync(self.device)
 
-    def bound(self, name: str, ops: float, nbytes: float) -> None:
-        """Record the least time the card could take for a timed call:
-        the larger of ``ops`` over the f32 peak and ``nbytes`` (each input
-        read once, each output written once) over the memory rate."""
-        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    def bound(self, name: str, nbytes: float, int_ops: float = 0.0,
+              f32_ops: float = 0.0) -> None:
+        """Record the least time the card could take for a timed call: the
+        largest of ``int_ops`` over the integer ALU rate (:func:`int_rate`),
+        ``f32_ops`` over the f32 peak and ``nbytes`` (each input read once,
+        each output written once) over the memory rate."""
+        t_ops = max(int_ops / self.int_rate, f32_ops / PEAK_F32_OPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
         rec = self.record[name]
         rec["bound_ms"] = max(t_ops, t_bytes)
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        log("  %-13s bound %.4f ms (%.3e ops, %.3e bytes), kernel %s ms, plain %s ms"
-            % (name, rec["bound_ms"], ops, nbytes, rec["ms"], rec["plain_ms"]))
+        log("  %-13s bound %.4f ms (%.3e integer ops, %.3e f32 ops, %.3e bytes), kernel %s "
+            "ms, plain %s ms" % (name, rec["bound_ms"], int_ops, f32_ops, nbytes, rec["ms"],
+                                 rec["plain_ms"]))
 
     def compare(self, name: str, case: str, got, want) -> None:
         """Exact equality of kernel and plain outputs (tuples allowed)."""
@@ -308,8 +333,12 @@ class Smoke:
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
 
-    def phase_kernels(self) -> None:
-        """Kernel against plain version on the same tensors."""
+    def phase_kernels(self, n_docs: int = 8192, n_ragged: int = 1001, scan=None,
+                      scan_edges=None) -> None:
+        """Kernel against plain version on the same tensors (kernel 1 on
+        ``n_docs`` docs and ``n_ragged`` ragged ones; kernel 2's data and
+        edge shapes: keyword arguments of :meth:`scan_data` and
+        :meth:`phase_kernels_scan`)."""
         torch = self.torch
         from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -319,7 +348,6 @@ class Smoke:
 
         # kernel 1: signatures of flat ragged tokens
         k1 = self.kmod("minhash_sign")
-        n_docs = 8192
         flat = torch.randint(-(1 << 31), 1 << 31, (n_docs * TOKENS_PER_DOC,), generator=g,
                              device=dev, dtype=torch.int32)
         lengths = torch.full((n_docs,), TOKENS_PER_DOC, dtype=torch.int32, device=dev)
@@ -333,85 +361,29 @@ class Smoke:
         n_tok = n_docs * TOKENS_PER_DOC
         # per (token, permutation): the 64-bit multiply and add, the
         # Mersenne fold (and, shift, add, compare-subtract), the mask, the min
-        self.bound("minhash_sign", 8.0 * n_tok * NUM_PERM,
-                   4 * n_tok + 12 * n_docs + 16 * NUM_PERM + 4 * n_docs * NUM_PERM)
-        lens = torch.randint(0, 300, (1001,), generator=g, device=dev, dtype=torch.int32)
+        self.bound("minhash_sign",
+                   4 * n_tok + 12 * n_docs + 16 * NUM_PERM + 4 * n_docs * NUM_PERM,
+                   int_ops=8.0 * n_tok * NUM_PERM)
+        lens = torch.randint(0, 300, (n_ragged,), generator=g, device=dev, dtype=torch.int32)
         lens[:10] = 0
-        lens[500] = 2500  # longer than the kernel's token tile
-        rstarts = torch.zeros(1001, dtype=torch.int64, device=dev)
+        lens[n_ragged // 2] = 2500  # longer than the kernel's token tile
+        rstarts = torch.zeros(n_ragged, dtype=torch.int64, device=dev)
         rstarts[1:] = torch.cumsum(lens[:-1], 0)
         rflat = torch.randint(0, 70000, (int(lens.sum()),), generator=g, device=dev,
                               dtype=torch.int32)
         for mix in (False, True):
             args = (rflat, rstarts, lens, a, b, mix)
-            self.compare("minhash_sign", "ragged 1001 docs, empty, mix=%s" % mix,
+            self.compare("minhash_sign", "ragged %d docs, empty, mix=%s" % (n_ragged, mix),
                          k1.minhash_sign(*args), k1.minhash_sign_plain(*args))
 
-        # kernel 2: fused top-k scan
+        # kernel 2 in its plain, mask and sizes modes
         k2 = self.kmod("topk_scan")
-        n, nq = N_INDEX, N_QUERIES
-        db = self.rand_sigs(n, NUM_PERM, 1)
-        qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
-        q = self.near_copies(db[qidx], 0.7, 2)
-        args = (db, q, TOP_K, n)
-        self.compare("topk_scan", "N=%d Q=%d k=%d" % (n, nq, TOP_K),
-                     k2.topk_scan(*args), k2.topk_scan_plain(*args, None, 0.0))
-        self.record["topk_scan"]["ms"] = self.time_ms(lambda: k2.topk_scan(*args))
-        self.record["topk_scan"]["plain_ms"] = self.time_ms(
-            lambda: k2.topk_scan_plain(*args, None, 0.0), iters=1, warmup=0)
-        # per (query, row, slot): one compare and one add
-        self.bound("topk_scan", 2.0 * nq * n * NUM_PERM,
-                   4 * (n + nq) * NUM_PERM + nq * (8 * TOP_K + 4))
-        n2, nq2 = 100003, 77
-        ties = self.rand_sigs(n2, NUM_PERM, 3, values=4)
-        halves = self.rand_sigs(n2, NUM_PERM, 4, values=2)
-        q_ties = self.rand_sigs(nq2, NUM_PERM, 6, values=4)
-        q_halves = self.rand_sigs(nq2, NUM_PERM, 7, values=2)
-        alive = torch.rand(n2, generator=g, device=dev) > 0.1
-        cases = [
-            ("ties k=1", ties, q_ties, 1, n2, None, 0.0),
-            ("ties k=128", ties, q_ties, 128, n2, None, 0.0),
-            ("ties k=37 alive n_valid", ties, q_ties, 37, n2 - 1000, alive, 0.0),
-            ("cutoff 0.5 k=16 alive", halves, q_halves, 16, n2, alive, 0.5),
-        ]
-        for case, d, qq, k, nv, al, cut in cases:
-            self.compare("topk_scan", case, k2.topk_scan(d, qq, k, nv, al, cut),
-                         k2.topk_scan_plain(d, qq, k, nv, al, cut))
-
-        # kernel 2, sizes (containment) mode: the ensemble's scan
-        sizes = self.lognormal_sizes(n, 8)
-        keep = torch.rand(nq, generator=g, device=dev) * 0.7 + 0.3
-        q_sizes = (sizes[qidx].to(torch.float32) * keep).to(torch.int32).clamp_min(1)
-        for k in (16, 128):
-            args = (db, sizes, q, q_sizes, k, ENS_THRESHOLD)
-            self.compare("containment_scan", "N=%d Q=%d k=%d cutoff %.1f"
-                         % (n, nq, k, ENS_THRESHOLD),
-                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
-            ms = self.time_ms(lambda a=args: k2.containment_topk(*a))
-            log("  containment_scan k=%d: %.4f ms" % (k, ms))
-            if k == 16:  # the serving call's first k
-                self.record["containment_scan"]["ms"] = ms
-                self.record["containment_scan"]["plain_ms"] = self.time_ms(
-                    lambda a=args: k2.containment_topk_plain(*a), iters=1, warmup=0)
-                # the slot counts, and per (query, row) the containment
-                # score's five f32 operations and its compare
-                self.bound("containment_scan", 2.0 * nq * n * NUM_PERM + 6.0 * nq * n,
-                           4 * (n + nq) * (NUM_PERM + 1) + nq * (8 * k + 4))
-        s2 = self.lognormal_sizes(n2, 9)
-        s2[:20000] = 120  # equal sizes over 2-valued rows: tied scores
-        s2[50000:50100] = 1 << 30
-        qs2 = torch.randint(1, 400, (nq2,), generator=g, device=dev, dtype=torch.int32)
-        qs2[:3] = torch.tensor([0, 1, 1 << 30], dtype=torch.int32)
-        cases = [
-            ("ties k=1 cutoff 0.0", halves, q_halves, 1, 0.0),
-            ("ties k=37 cutoff 1.0", halves, q_halves, 37, 1.0),
-            ("ties k=128 cutoff 0.5", halves, q_halves, 128, 0.5),
-            ("4-valued k=37 cutoff 0.8", ties, q_ties, 37, 0.8),
-        ]
-        for case, d, qq, k, cut in cases:
-            args = (d, s2, qq, qs2, k, cut)
-            self.compare("containment_scan", case + " ragged, sizes 0..2**30",
-                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
+        data = self.scan_data(**(scan or {}))
+        self.phase_kernels_scan(data, **(scan_edges or {}))
+        db, q, qidx, n, nq = data["db"], data["q"], data["qidx"], data["n"], data["nq"]
+        ties, q_ties, halves, q_halves = (data[x] for x in ("ties", "q_ties", "halves",
+                                                            "q_halves"))
+        alive, n2 = data["alive"], data["n2"]
 
         # kernel 3: rerank with the candidate gather fused in
         k3 = self.kmod("rerank")
@@ -426,8 +398,9 @@ class Smoke:
         live = cand[cand >= 0]
         # per live (query, candidate, slot): one compare and one add; the
         # table rows read are the distinct candidates
-        self.bound("rerank", 2.0 * live.numel() * NUM_PERM,
-                   4 * (int(torch.unique(live).numel()) + nq) * NUM_PERM + 8 * cand.numel())
+        self.bound("rerank",
+                   4 * (int(torch.unique(live).numel()) + nq) * NUM_PERM + 8 * cand.numel(),
+                   int_ops=SLOT_INT_OPS * live.numel() * NUM_PERM)
         rc = torch.randint(-1, n2, (5, 70), generator=g, device=dev, dtype=torch.int32)
         rc[2] = -1
         self.compare("rerank", "Q=5 C=70 ties, an all -1 row",
@@ -443,7 +416,8 @@ class Smoke:
         self.record["score_matrix"]["plain_ms"] = self.time_ms(
             lambda: k4.score_matrix_plain(q, tile), iters=1)
         t = tile.shape[0]
-        self.bound("score_matrix", 2.0 * nq * t * NUM_PERM, 4 * (nq + t) * NUM_PERM + 4 * nq * t)
+        self.bound("score_matrix", 4 * (nq + t) * NUM_PERM + 4 * nq * t,
+                   int_ops=SLOT_INT_OPS * nq * t * NUM_PERM)
         # one PyTorch call with the same function: the Hamming distance
         # (cdist, p = 0) counts the differing slots, P minus the equal ones
         qd, td = q.double(), tile.double()
@@ -465,6 +439,123 @@ class Smoke:
             k2.running_topk(q_halves, halves, BIG_K, n2, alive, 0.5,
                             k4.score_matrix_plain, 8192),
         )
+
+    def scan_data(self, n: int = N_INDEX, nq: int = N_QUERIES, n2: int = 100003,
+                  nq2: int = 77, p: int = NUM_PERM) -> dict:
+        """Kernel 2's inputs on the device: the timed table (``n`` random
+        rows of ``p`` slots, ``nq`` near-copy queries, lognormal sizes) and
+        the tie tables (``n2`` rows of 4- and 2-valued slots, ``nq2``
+        queries, an alive mask)."""
+        torch = self.torch
+        dev = self.device
+        g = torch.Generator(device=dev).manual_seed(5)
+        db = self.rand_sigs(n, p, 1)
+        qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
+        sizes = self.lognormal_sizes(n, 8)
+        keep = torch.rand(nq, generator=g, device=dev) * 0.7 + 0.3
+        return {
+            "n": n, "nq": nq, "n2": n2, "db": db, "qidx": qidx,
+            "q": self.near_copies(db[qidx], 0.7, 2), "sizes": sizes,
+            "q_sizes": (sizes[qidx].to(torch.float32) * keep).to(torch.int32).clamp_min(1),
+            "ties": self.rand_sigs(n2, NUM_PERM, 3, values=4),
+            "halves": self.rand_sigs(n2, NUM_PERM, 4, values=2),
+            "q_ties": self.rand_sigs(nq2, NUM_PERM, 6, values=4),
+            "q_halves": self.rand_sigs(nq2, NUM_PERM, 7, values=2),
+            "alive": torch.rand(n2, generator=g, device=dev) > 0.1,
+        }
+
+    def phase_kernels_scan(self, data: dict, edge_n: int = 20011,
+                           edge_q=(1, 33, 1000), one_split=(1000, 33)) -> None:
+        """Kernel 2 (``topk_scan``) and its sizes mode (``containment_scan``)
+        against the plain version on the same tensors, exact: the timed
+        shapes (Q x N x P 128 at k 10; sizes at k 16 and 128, cutoff 0.8),
+        tie tables with an alive mask and ``n_valid`` < N, then P 66, 100
+        and 128 at N = ``edge_n`` (not a whole number of tiles) for each Q
+        in ``edge_q`` and k 1 and 128, and a table of ``one_split`` = (N, Q)
+        that the grid scans in one split."""
+        torch = self.torch
+        k2 = self.kmod("topk_scan")
+        dev = self.device
+        g = torch.Generator(device=dev).manual_seed(8)
+        n, nq, db, q = data["n"], data["nq"], data["db"], data["q"]
+        n2, alive = data["n2"], data["alive"]
+        ties, halves, q_ties, q_halves = (data[x] for x in ("ties", "halves", "q_ties",
+                                                            "q_halves"))
+        args = (db, q, TOP_K, n)
+        self.compare("topk_scan", "N=%d Q=%d k=%d" % (n, nq, TOP_K),
+                     k2.topk_scan(*args), k2.topk_scan_plain(*args, None, 0.0))
+        self.record["topk_scan"]["ms"] = self.time_ms(lambda: k2.topk_scan(*args))
+        self.record["topk_scan"]["plain_ms"] = self.time_ms(
+            lambda: k2.topk_scan_plain(*args, None, 0.0), iters=1, warmup=0)
+        self.bound("topk_scan", 4 * (n + nq) * NUM_PERM + nq * (8 * TOP_K + 4),
+                   int_ops=SLOT_INT_OPS * nq * n * NUM_PERM)
+        cases = [
+            ("ties k=1", ties, q_ties, 1, n2, None, 0.0),
+            ("ties k=128", ties, q_ties, 128, n2, None, 0.0),
+            ("ties k=37 alive n_valid", ties, q_ties, 37, n2 - 1000, alive, 0.0),
+            ("cutoff 0.5 k=16 alive", halves, q_halves, 16, n2, alive, 0.5),
+        ]
+        for case, d, qq, k, nv, al, cut in cases:
+            self.compare("topk_scan", case, k2.topk_scan(d, qq, k, nv, al, cut),
+                         k2.topk_scan_plain(d, qq, k, nv, al, cut))
+
+        # the sizes (containment) mode: the ensemble's scan
+        sizes, q_sizes = data["sizes"], data["q_sizes"]
+        for k in (16, 128):
+            args = (db, sizes, q, q_sizes, k, ENS_THRESHOLD)
+            self.compare("containment_scan", "N=%d Q=%d k=%d cutoff %.1f"
+                         % (n, nq, k, ENS_THRESHOLD),
+                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
+            ms = self.time_ms(lambda a=args: k2.containment_topk(*a))
+            log("  containment_scan k=%d: %s ms" % (k, ms))
+            if k == 16:  # the serving call's first k
+                self.record["containment_scan"]["ms"] = ms
+                self.record["containment_scan"]["plain_ms"] = self.time_ms(
+                    lambda a=args: k2.containment_topk_plain(*a), iters=1, warmup=0)
+                # the slot counts (integer), and per (query, row) the
+                # containment score's five f32 operations and its compare
+                self.bound("containment_scan",
+                           4 * (n + nq) * (NUM_PERM + 1) + nq * (8 * k + 4),
+                           int_ops=SLOT_INT_OPS * nq * n * NUM_PERM, f32_ops=6.0 * nq * n)
+        s2 = self.lognormal_sizes(n2, 9)
+        s2[:20000] = 120  # equal sizes over 2-valued rows: tied scores
+        s2[50000:50100] = 1 << 30
+        qs2 = torch.randint(1, 400, (q_halves.shape[0],), generator=g, device=dev,
+                            dtype=torch.int32)
+        qs2[:3] = torch.tensor([0, 1, 1 << 30], dtype=torch.int32)
+        cases = [
+            ("ties k=1 cutoff 0.0", halves, q_halves, 1, 0.0),
+            ("ties k=37 cutoff 1.0", halves, q_halves, 37, 1.0),
+            ("ties k=128 cutoff 0.5", halves, q_halves, 128, 0.5),
+            ("4-valued k=37 cutoff 0.8", ties, q_ties, 37, 0.8),
+        ]
+        for case, d, qq, k, cut in cases:
+            args = (d, s2, qq, qs2, k, cut)
+            self.compare("containment_scan", case + " ragged, sizes 0..2**30",
+                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
+
+        # edge shapes: P not a multiple of 4 or of 64, ragged N and Q, k at
+        # both ends, 2-valued slots (ties everywhere) with a tie block of
+        # equal sizes, and one shape scanned in a single split
+        shapes = [(p, edge_n, nqe, k) for p in (66, 100, NUM_PERM) for nqe in edge_q
+                  for k in (1, 128)]
+        shapes += [(NUM_PERM, one_split[0], one_split[1], 16)]
+        for i, (p, ne, nqe, k) in enumerate(shapes):
+            d = self.rand_sigs(ne, p, 100 + i, values=2)
+            qq = self.rand_sigs(nqe, p, 200 + i, values=2)
+            al = torch.rand(ne, generator=g, device=dev) > 0.2
+            nv = ne - ne // 7
+            cut = 0.5 if k == 128 else 0.0
+            case = "P %d N %d Q %d k %d" % (p, ne, nqe, k)
+            self.compare("topk_scan", case + " alive n_valid cutoff %.1f" % cut,
+                         k2.topk_scan(d, qq, k, nv, al, cut),
+                         k2.topk_scan_plain(d, qq, k, nv, al, cut))
+            xs = self.lognormal_sizes(ne, 300 + i)
+            xs[: ne // 4] = 120
+            qs = torch.randint(0, 300, (nqe,), generator=g, device=dev, dtype=torch.int32)
+            args = (d, xs, qq, qs, k, 0.8)
+            self.compare("containment_scan", case + " cutoff 0.8 tie block",
+                         k2.containment_topk(*args), k2.containment_topk_plain(*args))
 
     def phase_kernels_cws(self, n_rows: int = W_ROWS, dense_rows: int = W_DENSE_ROWS,
                           edge_rows: int = 257) -> None:
@@ -491,8 +582,9 @@ class Smoke:
         # per active (row, dim, sample): division, add, floor, subtract,
         # multiply, subtract, subtract, compare; a log per active (row, dim)
         active = int((vals > 0).sum())
-        self.bound("cws_sparse", 8.0 * active * W_SAMPLES + active,
-                   8 * vals.numel() + 8 * (n_rows + 1) + tab_bytes + 8 * n_rows * W_SAMPLES)
+        self.bound("cws_sparse",
+                   8 * vals.numel() + 8 * (n_rows + 1) + tab_bytes + 8 * n_rows * W_SAMPLES,
+                   f32_ops=8.0 * active * W_SAMPLES + active)
         head = indptr[: dense_rows + 1]
         nnz = int(head[-1])
         sparse_kt = kc.cws_sparse(vals[:nnz], idx[:nnz], head, *tables)
@@ -512,8 +604,8 @@ class Smoke:
         rec["plain_ms"] = self.time_ms(lambda: kc.cws_dense_plain(w, *tables), iters=1,
                                        warmup=0)
         active = int((w > 0).sum())
-        self.bound("cws_dense", 8.0 * active * W_SAMPLES + active,
-                   4 * w.numel() + tab_bytes + 8 * chunk * W_SAMPLES)
+        self.bound("cws_dense", 4 * w.numel() + tab_bytes + 8 * chunk * W_SAMPLES,
+                   f32_ops=8.0 * active * W_SAMPLES + active)
         del dense, w, sparse_kt
         for d, s in ((10001, 100), (333, 6), (W_DIM, W_SAMPLES)):
             tabs, w = cws_edge_case(torch, d, s, dev, edge_rows)
@@ -699,6 +791,25 @@ class Smoke:
                 check(np.array_equal(x, y),
                       "facade parity: threshold %s ids/scores/n_match/truncated" % method)
 
+        # rows of a device tensor, as lists and one by one, answer as the
+        # batch does
+        dev_sub = torch.from_numpy(sub.view(np.int32)).to(self.device)
+        q_rows = list(torch.from_numpy(queries.view(np.int32)).to(self.device))
+        by_rows = TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=self.device)
+        tail = min(256, n_rows)
+        by_rows.index(range(n_rows - tail), list(dev_sub[: n_rows - tail]))
+        for i in range(n_rows - tail, n_rows):
+            by_rows.insert(i, dev_sub[i])
+        for method in ("scan", "bands"):
+            want = pair[0].top_k(queries, TOP_K, method)
+            check(by_rows.top_k(q_rows, TOP_K, method) == want,
+                  "facade parity: top_k of device rows (%s) differs" % method)
+            check(by_rows.query_batch(q_rows, method=method)
+                  == pair[0].query_batch(queries, method=method),
+                  "facade parity: query_batch of device rows (%s) differs" % method)
+        check(by_rows.query(q_rows[0]) == pair[0].query(queries[0]),
+              "facade parity: query of one device row differs")
+        del by_rows, dev_sub
         for rnd in range(2):
             for method in ("scan", "bands", "auto"):
                 same("top_k %s" % method, lambda ix, m=method: ix.top_k(queries, TOP_K, m))
@@ -713,8 +824,9 @@ class Smoke:
                     for ix in pair:
                         ix.remove(key)
         log("[facade parity] %d rows x %d queries: CUDA and CPU facades agree on ids, "
-            "scores, n_match and last_truncated (before and after 500 removals)"
-            % (n_rows, n_queries))
+            "scores, n_match and last_truncated (before and after 500 removals); an index "
+            "of device-tensor rows (a list, then %d inserts) answers lists of device rows "
+            "as the batch index does" % (n_rows, n_queries, tail))
 
     # ---------------------------------------------------------- ensemble
 
@@ -1036,9 +1148,7 @@ class Smoke:
             self.compare("bbit_scores", case, got, kb.bbit_counts_plain(q, db, s))
             ms = self.time_ms(lambda: kb.bbit_counts(q, db, s))
             plain_ms = self.time_ms(lambda: kb.bbit_counts_plain(q, db, s), iters=1, warmup=0)
-            # per (query, row, word): the XOR, two operations per fold step,
-            # the masked NOT, the popcount and the add
-            ops = (4.0 + 2 * math.log2(s)) * n_queries * n_rows * w
+            ops = bbit_word_int_ops(s) * n_queries * n_rows * w
             nbytes = 4 * (n_queries + n_rows) * w + 4 * n_queries * n_rows
             # one PyTorch call with the same function: the Hamming distance
             # of the b-bit slots (cdist, p = 0) is num_perm minus the count
@@ -1052,7 +1162,7 @@ class Smoke:
             del qd, dd
             if b == 1:  # the timed shape of the kernels line: bbit-1m at b = 1
                 rec["ms"], rec["plain_ms"], rec["library_ms"] = ms, plain_ms, lib_ms
-                self.bound("bbit_scores", ops, nbytes)
+                self.bound("bbit_scores", nbytes, int_ops=ops)
             log("  bbit_scores   %s: kernel %s ms, plain %s ms, cdist %s ms, %.3e ops, "
                 "%.3e bytes" % (case, ms, plain_ms, lib_ms, ops, nbytes))
 
@@ -1457,6 +1567,22 @@ def synth_index(n: int, head: np.ndarray, dup_rate: float = 0.2, seed: int = 9):
     keep = rng.rand(n_dup, head.shape[1]) < rng.uniform(0.6, 0.95, size=(n_dup, 1))
     sigs[dst] = np.where(keep, sigs[src], sigs[dst])
     return sigs, src, dst, np.concatenate([[0], near])
+
+
+def int_rate(torch, device) -> float:
+    """Integer ALU operations per second of ``device``: 64 lanes per SM per
+    clock, times its SMs, times the maximum SM clock that ``nvidia-smi``
+    reports (off the card: the H100 SXM's)."""
+    if device.type != "cuda":
+        return INT_LANES_PER_SM * H100_SMS * H100_MAX_SM_MHZ * 1e6
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, "nvidia-smi failed: %s" % out.stderr.strip())
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return INT_LANES_PER_SM * sms * mhz * 1e6
 
 
 def nvidia_smi_line() -> str:

@@ -22,20 +22,42 @@
 // bits of c as an int (c >= 0, and non-negative floats order like their
 // bit patterns), so the same machinery serves both modes.
 //
-// Bound on the H100: integer issue in the compare (~2*Q*N*P ops: 2.7e11
-// at Q = 1024, N = 2**20, P = 128) and, second, the db stream: each block
-// of 32 queries reads its share of the N*4P-byte table once, so the table
-// crosses the memory bus Q/32 times. The containment score adds ~5 f32 ops
-// per (query, row) pair, small beside the P-slot compare. The TPU grid ran
-// its db axis in order and carried the top-k in VMEM; here the db axis is
-// also split over gridDim.y so that Q = 50..1024 still fills 132 SMs. Each
-// (query block, split) keeps a sorted per-query top-k in shared memory;
-// a tile's rows go to a per-query candidate buffer only when they beat
-// the current k-th best (most tiles add nothing, like the TPU kernel's
-// can_improve skip), and one warp per query merges the buffer by rank.
-// A second small kernel merges the splits' lists per query by rank; both
-// merges are exact in the total order, so the result does not depend on
-// the split count or on the order in which threads append.
+// Bound on the H100: one integer compare per (query, row, slot), 1.37e11
+// at Q 1,024, N 2**20, P 128: 8.2 ms at 64 integer lanes x 132 SMs x
+// 1,980 MHz. The db stream comes second: each block of 32 queries reads
+// its share of the N*4P-byte table once, so the table crosses the L2 Q/32
+// times. The containment score adds ~5 f32 ops per (query, row) pair,
+// small beside the P-slot compare.
+//
+// Design (the TPU grid ran its db axis in order and carried the top-k in
+// VMEM):
+// - Grid: (query blocks of kQB = 32, splits of the db axis). The wrapper
+//   sizes the splits so that the blocks fill the card's resident slots in
+//   one whole wave (ds_topk_scan_blocks_per_sm reports them per SM); a
+//   block of a second wave would run while most of the card idles. Each
+//   split is a whole number of kRB = 64-row tiles.
+// - Staging: the query tile is staged once; db tiles are copied with
+//   cp.async (16-byte where P % 4 == 0 and the table is 16-byte aligned,
+//   else 4-byte), with no pass through registers, into one buffer. A
+//   block (70,528 bytes at P 128, k 10; 100,736 at k 128; under 80
+//   registers a thread, where 3 blocks allow 85) fits 3 times on an SM at
+//   k 10 and 16 and twice at k 128, and the other resident blocks count
+//   while one waits for its tile. A
+//   second buffer, to copy tile t + 1 while tile t is counted, costs a
+//   resident block at P 100 and 128 and was slower there, and no faster
+//   at P 64 where it costs none (PERF.md).
+// - Counts: each thread counts 2 db rows x 4 queries (kRowsPT x
+//   kQueriesPT, the thread map below), so one staged 16-byte word feeds 8
+//   compares: 6 LDS.128 per 32 compares, where 1 row x 8 queries took 9.
+//   Each slot costs one ISETP and one predicated f32 FADD (count_equal).
+// - Top-k: each (query block, split) keeps a sorted per-query top-k in
+//   shared memory; a tile's rows go to a per-query candidate buffer only
+//   when they beat the current k-th best (most tiles add nothing, like the
+//   TPU kernel's can_improve skip), and one warp per query merges the
+//   buffer by rank, in the tiles where any row was added. A second small
+//   kernel merges the splits' lists per query by rank; both merges are
+//   exact in the total order, so the result does not depend on the split
+//   count or on the order in which threads append.
 #include <climits>
 
 #include "common.cuh"
@@ -63,12 +85,134 @@ __device__ __forceinline__ float containment(int count, float inv_p, float xf,
                    __fmul_rn(__fadd_rn(1.0f, j), qf));
 }
 
+// Thread map of a tile (kQB queries x kRB rows, kThreads threads): lane
+// (lr, lq) = (lane % 4, lane / 4) of warp w counts rows w * 8 + lr and
+// w * 8 + lr + 4 against queries lq + 8 j, j < 4. A warp's 16-byte shared
+// loads then touch 4 distinct db rows or 8 distinct query rows, each on its
+// own banks (the row stride is 4 mod 32 ints at P 128), and every loaded
+// word feeds 8 compares.
+constexpr int kRowsPT = 2;                       // db rows per thread
+constexpr int kQueriesPT = 4;                    // queries per thread
+static_assert(kThreads / 32 * 4 * kRowsPT == kRB, "rows of a tile");
+static_assert(8 * kQueriesPT == kQB, "queries of a tile");
+
+// acc += 1 where a == b: one integer compare and one predicated f32 add.
+// Summing the compares as integers costs an add and a select on top of
+// the compare (the compiler's ISETP, VIADD, IMAD.MOV per slot); the f32
+// add runs on the FMA pipe beside the compare's integer ALU, and a count
+// of at most 2**24 is exact in f32.
+__device__ __forceinline__ void count_equal(float& acc, int a, int b) {
+  asm("{\n\t.reg .pred same;\n\tsetp.eq.b32 same, %1, %2;\n\t"
+      "@same add.f32 %0, %0, 0f3F800000;\n\t}"
+      : "+f"(acc)
+      : "r"(a), "r"(b));
+}
+
+__device__ __forceinline__ void count_equal4(float& acc, const int4& a, const int4& b) {
+  count_equal(acc, a.x, b.x);
+  count_equal(acc, a.y, b.y);
+  count_equal(acc, a.z, b.z);
+  count_equal(acc, a.w, b.w);
+}
+
+// counts[h][j] = equal slots between staged db row r0 + 4 h and staged
+// query lq + 8 j.
+__device__ __forceinline__ void block_counts(const int* q_s, const int* db_s,
+                                             int stride, int r0, int lq,
+                                             int (&counts)[kRowsPT][kQueriesPT]) {
+  float acc[kRowsPT][kQueriesPT];
+#pragma unroll
+  for (int h = 0; h < kRowsPT; ++h) {
+#pragma unroll
+    for (int j = 0; j < kQueriesPT; ++j) acc[h][j] = 0.0f;
+  }
+  const int vs = stride / 4;
+  const int nvec = vs - 1;  // the last int4 is the bank pad
+  const int4* d0 = reinterpret_cast<const int4*>(db_s) + r0 * vs;
+  const int4* d1 = d0 + 4 * vs;
+  const int4* qb = reinterpret_cast<const int4*>(q_s) + lq * vs;
+#pragma unroll 4
+  for (int c = 0; c < nvec; ++c) {
+    const int4 a = d0[c];
+    const int4 b = d1[c];
+#pragma unroll
+    for (int j = 0; j < kQueriesPT; ++j) {
+      const int4 w = qb[8 * j * vs + c];
+      count_equal4(acc[0][j], a, w);
+      count_equal4(acc[1][j], b, w);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kRowsPT; ++h) {
+#pragma unroll
+    for (int j = 0; j < kQueriesPT; ++j) counts[h][j] = static_cast<int>(acc[h][j]);
+  }
+}
+
+// Shared memory of a block, in ints.
 __host__ __device__ inline size_t scan_smem_ints(int p, int k) {
   return static_cast<size_t>(kQB + kRB) * row_stride(p)  // q and db tiles
          + 2 * kQB * k                                   // carry (key, id)
          + 2 * kQB * kRB                                 // candidates
          + 4 * kQB                                       // n_buf, n_carry, thr, hits
          + kRB + kQB;                                    // row sizes, query sizes
+}
+
+// cp.async: `bytes` (16 or 4) from global to shared memory without a pass
+// through registers; a source size of 0 reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0) : "memory");
+}
+
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issue the copy of db rows [row0, row0 + kRB) into `dst` (kRB rows of
+// `stride` ints), columns [0, p) only, and their sizes into `x_dst` (sizes
+// mode). Rows >= r_end are zero-filled: they fail the validity test, so
+// their counts are never used. The pad columns [p, stride) are never
+// written here: zero-fill there would equal the query tile's 0 pad.
+__device__ inline void issue_tile(int* dst, int* x_dst, const int* __restrict__ db,
+                                  const int* __restrict__ sizes, long long row0,
+                                  long long r_end, int p, int stride, bool vec) {
+  if (vec) {
+    const int vp = p / 4;
+    const int vs = stride / 4;
+    const int4* src = reinterpret_cast<const int4*>(db);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int i = threadIdx.x; i < kRB * vp; i += blockDim.x) {
+      const int r = i / vp;
+      const int c = i - r * vp;
+      const long long row = row0 + r;
+      const bool in = row < r_end;
+      cp_async16(d4 + r * vs + c, src + (in ? row * vp + c : 0), in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRB * p; i += blockDim.x) {
+      const int r = i / p;
+      const int c = i - r * p;
+      const long long row = row0 + r;
+      const bool in = row < r_end;
+      cp_async4(dst + r * stride + c, db + (in ? row * p + c : 0), in);
+    }
+  }
+  if (sizes != nullptr) {
+    for (int i = threadIdx.x; i < kRB; i += blockDim.x) {
+      const long long row = row0 + i;
+      const bool in = row < r_end;
+      cp_async4(x_dst + i, sizes + (in ? row : 0), in);
+    }
+  }
 }
 
 // Merge query qi's candidate buffer into its sorted carry (one warp).
@@ -152,12 +296,20 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
   int* x_s = hits_s + kQB;                             // the tile's row sizes
   float* qf_s = reinterpret_cast<float*>(x_s + kRB);   // f32 query sizes, >= 1
   const bool use_sizes = sizes != nullptr;
+  const bool vec = (p & 3) == 0 && (reinterpret_cast<uintptr_t>(db) & 15) == 0;
   const float inv_p = 1.0f / static_cast<float>(p);
 
   const int q0 = blockIdx.x * kQB;
   const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
   const long long r_end = min(n, r_begin + rows_per_split);
+  const int n_tiles = r_end > r_begin
+                          ? static_cast<int>((r_end - r_begin + kRB - 1) / kRB) : 0;
   stage_rows(q_s, q, q0, kQB, nq, p, stride, 0);
+  // the db pad columns: 1, never equal to the query tile's 0 pad
+  for (int i = threadIdx.x; i < kRB * (stride - p); i += blockDim.x) {
+    const int r = i / (stride - p);
+    db_s[r * stride + p + (i - r * (stride - p))] = 1;
+  }
   for (int i = threadIdx.x; i < kQB; i += blockDim.x) {
     n_buf[i] = 0;
     n_carry[i] = 0;
@@ -166,65 +318,69 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
     qf_s[i] = use_sizes && q0 + i < nq
                   ? static_cast<float>(max(q_sizes[q0 + i], 1)) : 1.0f;
   }
-  const int r = threadIdx.x % kRB;
-  const int g = threadIdx.x / kRB;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  int hits[kQPT];
+  const int r0 = warp * 8 + (lane & 3);  // rows r0 and r0 + 4
+  const int lq = lane >> 2;              // queries lq + 8 j
+  int hits[kQueriesPT];
 #pragma unroll
-  for (int i = 0; i < kQPT; ++i) hits[i] = 0;
+  for (int j = 0; j < kQueriesPT; ++j) hits[j] = 0;
 
-  for (long long row0 = r_begin; row0 < r_end; row0 += kRB) {
-    __syncthreads();  // the previous tile's merge is done
-    stage_rows(db_s, db, row0, kRB, r_end, p, stride, 1);
-    if (use_sizes) {
-      for (int i = threadIdx.x; i < kRB; i += blockDim.x) {
-        x_s[i] = row0 + i < r_end ? sizes[row0 + i] : 0;
-      }
-    }
-    __syncthreads();
-    int counts[kQPT];
-    tile_counts(q_s, db_s, stride, r, g, counts);
-    const long long row = row0 + r;
-    const int x = use_sizes ? x_s[r] : 1;
-    const bool valid = row < r_end && row < n_valid && x > 0 &&
-                       (alive == nullptr || alive[row] != 0);
-    if (valid) {
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long row0 = r_begin + static_cast<long long>(t) * kRB;
+    // every thread is past its reads of tile t - 1 (the __syncthreads_or)
+    issue_tile(db_s, x_s, db, sizes, row0, r_end, p, stride, vec);
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; the previous tile's merge is done
+    int counts[kRowsPT][kQueriesPT];
+    block_counts(q_s, db_s, stride, r0, lq, counts);
+    int appended = 0;
+#pragma unroll
+    for (int h = 0; h < kRowsPT; ++h) {
+      const int rr = r0 + 4 * h;
+      const long long row = row0 + rr;
+      const int x = use_sizes ? x_s[rr] : 1;
+      const bool valid = row < r_end && row < n_valid && x > 0 &&
+                         (alive == nullptr || alive[row] != 0);
+      if (!valid) continue;
       const float xf = static_cast<float>(x);
 #pragma unroll
-      for (int i = 0; i < kQPT; ++i) {
-        const int qi = g * kQPT + i;
+      for (int j = 0; j < kQueriesPT; ++j) {
+        const int qi = lq + 8 * j;
         int key;
         bool hit;
         if (use_sizes) {
-          const float c = containment(counts[i], inv_p, xf, qf_s[qi]);
+          const float c = containment(counts[h][j], inv_p, xf, qf_s[qi]);
           key = __float_as_int(c);
           hit = c >= cutoff;
         } else {
-          key = counts[i];
+          key = counts[h][j];
           hit = key >= min_count;
         }
         if (q0 + qi < nq && hit) {
-          ++hits[i];
+          ++hits[j];
           if (key > thr[qi]) {
             const int pos = atomicAdd(&n_buf[qi], 1);
             buf_c[qi * kRB + pos] = key;
             buf_i[qi * kRB + pos] = static_cast<int>(row);
+            appended = 1;
           }
         }
       }
     }
-    __syncthreads();
-    for (int qi = warp; qi < kQB; qi += kThreads / 32) {
-      if (n_buf[qi] > 0) {
-        merge_candidates(carry_c + qi * k, carry_i + qi * k, buf_c + qi * kRB,
-                         buf_i + qi * kRB, n_buf, n_carry, thr, qi, k, lane);
+    // the tile's reads and candidates are done; merge only if any came
+    if (__syncthreads_or(appended)) {
+      for (int qi = warp; qi < kQB; qi += kThreads / 32) {
+        if (n_buf[qi] > 0) {
+          merge_candidates(carry_c + qi * k, carry_i + qi * k, buf_c + qi * kRB,
+                           buf_i + qi * kRB, n_buf, n_carry, thr, qi, k, lane);
+        }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < kQPT; ++i) {
-    if (hits[i]) atomicAdd(&hits_s[g * kQPT + i], hits[i]);
+  for (int j = 0; j < kQueriesPT; ++j) {
+    if (hits[j]) atomicAdd(&hits_s[lq + 8 * j], hits[j]);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kQB * k; e += blockDim.x) {
@@ -286,35 +442,70 @@ __global__ void topk_merge_kernel(const int* __restrict__ part_cnt,
 
 }  // namespace
 
+// Make the scan kernel ready for its dynamic shared memory at (p, k);
+// `*fits` is false where that is more than a block may have.
+static cudaError_t prepare_scan(int p, int k, size_t* smem, bool* fits) {
+  *smem = sizeof(int) * scan_smem_ints(p, k);
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  *fits = err == cudaSuccess && *smem <= static_cast<size_t>(most);
+  if (err != cudaSuccess || !*fits) return err;
+  return cudaFuncSetAttribute(topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+// Resident blocks of the scan kernel per SM at (p, k), 0 where a block
+// does not fit, written to `*out`: the wrapper sizes its grid in whole
+// waves of them.
+extern "C" int ds_topk_scan_blocks_per_sm(int p, int k, void* out) {
+  size_t smem = 0;
+  bool fits = false;
+  cudaError_t err = prepare_scan(p, k, &smem, &fits);
+  int blocks = 0;
+  if (err == cudaSuccess && fits) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_scan_kernel,
+                                                        kThreads, smem);
+  }
+  *static_cast<int*>(out) = blocks;
+  return static_cast<int>(err);
+}
+
 // `alive`, `sizes` and `q_sizes` may be null; `sizes` and `q_sizes` are
 // given together and select the sizes mode (then `cutoff` is the f32 hit
-// test and `min_count` is unused).
+// test and `min_count` is unused). Split s scans rows [s * rows_per_split,
+// (s + 1) * rows_per_split): a whole number of tiles, n_split of them
+// covering the n rows.
 extern "C" int ds_topk_scan(const void* db, const void* q, const void* alive,
                             const void* sizes, const void* q_sizes, int nq,
                             long long n, int p, long long n_valid,
                             int min_count, float cutoff, int k, int n_split,
-                            void* part_cnt, void* part_id, void* hit_count,
-                            void* stream) {
+                            long long rows_per_split, void* part_cnt,
+                            void* part_id, void* hit_count, void* stream) {
   if ((sizes == nullptr) != (q_sizes == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > kMaxK || rows_per_split < kRB || rows_per_split % kRB != 0 ||
+      static_cast<long long>(n_split) * rows_per_split < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nq > 0 && n_split > 0) {
-    const size_t smem = sizeof(int) * scan_smem_ints(p, k);
-    cudaError_t err = cudaFuncSetAttribute(
-        topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    size_t smem = 0;
+    bool fits = false;
+    const cudaError_t err = prepare_scan(p, k, &smem, &fits);
     if (err != cudaSuccess) return static_cast<int>(err);
-    long long rows = (n + n_split - 1) / n_split;
-    rows = ((rows + kRB - 1) / kRB) * kRB;
+    if (!fits) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>((nq + kQB - 1) / kQB),
                     static_cast<unsigned>(n_split));
     topk_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(db), static_cast<const int*>(q),
         static_cast<const unsigned char*>(alive),
         static_cast<const int*>(sizes), static_cast<const int*>(q_sizes), nq,
-        n, p, n_valid, min_count, cutoff, k, rows, static_cast<int*>(part_cnt),
-        static_cast<int*>(part_id), static_cast<int*>(hit_count));
+        n, p, n_valid, min_count, cutoff, k, rows_per_split,
+        static_cast<int*>(part_cnt), static_cast<int*>(part_id),
+        static_cast<int*>(hit_count));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,10 +33,14 @@ _METHODS = ("auto", "bands", "scan")
 def _host_rows(minhashes) -> np.ndarray:
     """uint32[N, P] from a sequence of rows or objects with ``hashvalues``:
     MinHash state (uint64 values < 2**32) or WeightedMinHash (k, t) pairs
-    ([P, 2], mixed to slots by ``kt_slots_np``)."""
+    ([P, 2], mixed to slots by ``kt_slots_np``). A tensor row on any device
+    is fetched."""
     rows = []
     for m in minhashes:
-        hv = np.asarray(m.hashvalues if hasattr(m, "hashvalues") else m)
+        hv = m.hashvalues if hasattr(m, "hashvalues") else m
+        if isinstance(hv, torch.Tensor):
+            hv = hv.detach().cpu()
+        hv = np.asarray(hv)
         rows.append(kt_slots_np(hv) if hv.ndim == 2 else hv.astype(np.uint64).astype(np.uint32))
     return np.stack(rows) if rows else np.zeros((0, 0), dtype=np.uint32)
 
@@ -53,7 +57,11 @@ def _as_signature_matrix(minhashes, device: torch.device) -> torch.Tensor:
             slots = (kt_slots(minhashes) if isinstance(minhashes, torch.Tensor)
                      else kt_slots_np(minhashes))
             return as_sig_tensor(slots, device)
-    return as_sig_tensor(_host_rows(minhashes), device)
+    rows = list(minhashes)
+    if rows and all(isinstance(m, torch.Tensor) for m in rows):
+        # rows of a device batch: stacked where they lie, never fetched
+        return _as_signature_matrix(torch.stack(rows), device)
+    return as_sig_tensor(_host_rows(rows), device)
 
 
 def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:

@@ -98,6 +98,14 @@ class WeightedMinHashGenerator:
         self.betas = generator.uniform(0, 1, (sample_size, dim)).astype(np.float32)
         self._params_t = None  # f32[D, S] tables on the device, made once
 
+    def __getstate__(self) -> dict:
+        """Pickle the parameters, not the device tables cached from them:
+        those are remade on the first use after unpickling, where a CUDA
+        tensor in the pickle would need a card to load."""
+        state = self.__dict__.copy()
+        state["_params_t"] = None
+        return state
+
     def minhash(self, v) -> WeightedMinHash:
         """Sketch one weight vector on the host (k = argmin of ln a over
         the non-zero dims)."""

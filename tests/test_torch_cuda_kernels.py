@@ -86,6 +86,46 @@ def test_topk_scan_kernel_matches_plain(dev, p, k, cutoff, masked):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("p", [66, 100, 128])
+@pytest.mark.parametrize("nq", [1, 33, 1000])
+@pytest.mark.parametrize("k", [1, 128])
+def test_topk_scan_kernel_edge_shapes(dev, p, nq, k):
+    """P not a multiple of 4 or 64, N not a whole number of tiles, ragged
+    Q, k at both ends, 2-valued slots (ties everywhere), an alive mask and
+    n_valid < N."""
+    n = 20011
+    db = _sigs(dev, n, p, 40 + p, values=2)
+    q = _sigs(dev, nq, p, 41 + nq, values=2)
+    alive = torch.rand(n, generator=_gen(dev, 42), device=dev) > 0.2
+    cutoff = 0.5 if k == 128 else 0.0
+    got = _launched(lsh_scan, lambda: lsh_scan.topk_scan(db, q, k, n - 2857, alive, cutoff))
+    want = lsh_scan.topk_scan_plain(db, q, k, n - 2857, alive, cutoff)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("sizes_mode", [False, True])
+def test_scan_kernel_single_split(dev, sizes_mode):
+    """A table small enough that the grid scans it in one split."""
+    from datasketch_tpu_torch.kernels import build
+
+    n, nq = 1000, 33
+    assert lsh_scan._grid(nq, n, build.num_sms(_sigs(dev, 1, 4, 0)), 4)[0] == 1
+    db = _sigs(dev, n, 128, 50, values=2)
+    q = _sigs(dev, nq, 128, 51, values=2)
+    if sizes_mode:
+        sizes = _sizes(dev, n, 52)
+        sizes[:250] = 120
+        q_sizes = _sizes(dev, nq, 53)
+        got = _launched_sizes(lambda: lsh_scan.containment_topk(db, sizes, q, q_sizes, 16, 0.8))
+        want = lsh_scan.containment_topk_plain(db, sizes, q, q_sizes, 16, 0.8)
+    else:
+        got = _launched(lsh_scan, lambda: lsh_scan.topk_scan(db, q, 16, n - 100))
+        want = lsh_scan.topk_scan_plain(db, q, 16, n - 100, None, 0.0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 def _sizes(dev, n, seed, lo=1, hi=400):
     return torch.randint(lo, hi, (n,), generator=_gen(dev, seed), device=dev,
                          dtype=torch.int32)
@@ -109,6 +149,25 @@ def test_containment_kernel_matches_plain(dev, p, k, cutoff):
     q_sizes[:3] = torch.tensor([0, 1, 1 << 30], dtype=torch.int32)
     got = _launched_sizes(lambda: lsh_scan.containment_topk(db, sizes, q, q_sizes, k, cutoff))
     want = lsh_scan.containment_topk_plain(db, sizes, q, q_sizes, k, cutoff)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("p", [66, 100])
+@pytest.mark.parametrize("nq", [1, 33, 1000])
+@pytest.mark.parametrize("k", [1, 128])
+def test_containment_kernel_edge_shapes(dev, p, nq, k):
+    """Sizes mode at P 66 and 100, ragged N and Q, k at both ends, on
+    2-valued slots with a block of equal sizes (tied scores)."""
+    n = 20011
+    db = _sigs(dev, n, p, 60 + p, values=2)
+    q = _sigs(dev, nq, p, 61 + nq, values=2)
+    sizes = _sizes(dev, n, 62)
+    sizes[:5000] = 120
+    sizes[::13] = 0
+    q_sizes = _sizes(dev, nq, 63, lo=0, hi=300)
+    got = _launched_sizes(lambda: lsh_scan.containment_topk(db, sizes, q, q_sizes, k, 0.8))
+    want = lsh_scan.containment_topk_plain(db, sizes, q, q_sizes, k, 0.8)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -157,6 +216,44 @@ def test_cuda_index_matches_cpu_index(dev):
         assert got[0] == got[1]
         got = [ix.query_batch(queries, return_scores=True, method=method) for ix in pair]
         assert got[0] == got[1]
+
+
+def test_lists_of_device_rows_answer_as_the_batch(dev):
+    """Rows of a ``bulk_signatures(out="device")`` tensor, one by one or in
+    lists, answer as the batch does: ``TorchMinHashLSH`` insert / query /
+    top_k, ``TorchBBitIndex`` insert / query, the ensemble's (key, row,
+    size) entries and (row, size) queries."""
+    rng = np.random.RandomState(30)
+    docs = [rng.randint(0, 5000, rng.randint(20, 200)) for _ in range(600)]
+    docs[300:] = [np.concatenate([d[: len(d) * 4 // 5], rng.randint(0, 5000, 5)])
+                  for d in docs[:300]]
+    sigs = MinHash.bulk_signatures(docs, hashfunc="device", out="device", device=dev)
+    assert sigs.device.type == "cuda"
+    batch = TorchMinHashLSH(threshold=0.5, device=dev)
+    rows = TorchMinHashLSH(threshold=0.5, device=dev)
+    batch.index(range(600), sigs)
+    for i in range(600):
+        rows.insert(i, sigs[i])
+    queries = sigs[280:330]
+    for method in ("scan", "bands"):
+        want = batch.top_k(queries, 5, method=method)
+        assert rows.top_k(list(queries), 5, method=method) == want
+        assert batch.query_batch(list(queries), method=method) == \
+            batch.query_batch(queries, method=method)
+    assert rows.query(sigs[310]) == batch.query_batch(sigs[310:311])[0]
+    bb = [TorchBBitIndex(b=4, num_perm=128, device=dev) for _ in range(2)]
+    bb[0].insert_batch(range(600), sigs)
+    for i in range(600):
+        bb[1].insert(i, sigs[i])
+    assert bb[1].query_batch(list(queries), 5) == bb[0].query_batch(queries, 5)
+    assert bb[1].query(sigs[5], 3) == bb[0].query_batch(sigs[5:6], 3)[0]
+    sizes = [len(np.unique(d)) for d in docs]
+    ens = [TorchMinHashLSHEnsemble(threshold=0.8, num_part=4, device=dev) for _ in range(2)]
+    ens[0].index_batch(range(600), sigs, sizes)
+    ens[1].index([(i, sigs[i], sizes[i]) for i in range(600)])
+    want = ens[0].query_batch((queries, sizes[280:330]), method="scan")
+    assert ens[1].query_batch(list(zip(queries, sizes[280:330])), method="scan") == want
+    assert ens[1].query_batch((sigs[300], sizes[300]), method="scan") == [want[20]]
 
 
 def test_cuda_ensemble_matches_cpu_ensemble(dev):

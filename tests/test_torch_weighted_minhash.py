@@ -212,3 +212,24 @@ def test_ensemble_from_kt_matches_jax(sketches):
             got, want, objs = ([set(r) for r in g] for g in (got, want, objs))
         assert got == want == objs
         assert ours.last_truncated == ref.last_truncated
+
+
+def test_pickle_drops_cached_device_tables():
+    """A generator pickled after dense and CSR ``minhash_many`` calls (which
+    cache its [D, S] tables on its device) pickles only its parameters:
+    it unpickles without the tables, is no larger than one never used, and
+    sketches the same."""
+    import pickle
+
+    x, q = _corpus(n=60, n_queries=8, seed=3)
+    fresh = WeightedMinHashGenerator(DIM, 64, seed=4, device="cpu")
+    used = WeightedMinHashGenerator(DIM, 64, seed=4, device="cpu")
+    want_dense = used.minhash_many(x[:20].toarray(), out="device")
+    want_csr = used.minhash_many(q, out="device")
+    assert used._params_t is not None
+    blob = pickle.dumps(used)
+    assert len(blob) <= len(pickle.dumps(fresh))
+    back = pickle.loads(blob)
+    assert back._params_t is None and used._params_t is not None
+    assert torch.equal(back.minhash_many(x[:20].toarray(), out="device"), want_dense)
+    assert torch.equal(back.minhash_many(q, out="device"), want_csr)

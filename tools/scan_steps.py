@@ -1,0 +1,240 @@
+#!/usr/bin/env python3
+"""Kernel 2 (the fused exact-scan top-k) of one or more checkouts, timed in
+turns on one card.
+
+Usage, from the root of a checkout, on a machine with one CUDA card:
+
+    python3 tools/scan_steps.py [--sass] [--reps N] [--p P] [--out DIR] [ROOT ...]
+
+Each ROOT is the root of a checkout of this repository (default: this
+one); give the same one twice to time it twice (for example ``OLD . .
+OLD``). For each ROOT in the order given, one process imports
+``datasketch_tpu_torch`` from that ROOT, builds its kernels (``nvcc``) and
+prints ptxas' registers, shared memory and spills for the scan kernel. The
+first time a ROOT comes up, it also holds kernel 2 exactly equal to its
+plain version on every case of ``chip_smoke.py``'s kernel-2 phase
+(``Smoke.phase_kernels_scan``) and fails if one differs. Every process then
+times, with CUDA events (mean of N calls after a warm one), the timed
+shapes: Q 1,024 x N 1,048,576 x P (128 unless ``--p``) at k 10, and the
+sizes mode at k 16 and k 128 (cutoff 0.8). With ``--sass`` it also prints
+the opcode counts of the innermost loop that compares staged rows in the
+scan, score, rerank and b-bit kernels (``cuobjdump -sass``). With
+``--out DIR`` each process's full output, and with ``--sass`` each build's
+whole SASS listing, are written under DIR.
+
+Prints one JSON line per process and, first, the card's name and power
+limit. Exits non-zero if a build or a parity check failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel", "rerank_kernel")
+
+
+def load_smoke():
+    """``chip_smoke.py`` of this checkout, loaded by path so that the
+    package comes from the ROOT under test."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ptxas_lines(log: str, name: str) -> list:
+    """ptxas' report lines for the entry function whose name holds ``name``."""
+    out, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = name in line
+        elif on and ("registers" in line or "spill" in line or "smem" in line):
+            out.append(line.strip())
+    return out
+
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def functions(sass: str) -> dict:
+    """Function name -> [(address, instruction text)] of a cuobjdump -sass
+    listing; a label takes the address of the instruction after it."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = []
+            labels[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSTR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[cur][lab] = addr
+            pending = []
+            funcs[cur].append((addr, m.group(2)))
+    return {name: (body, labels[name]) for name, body in funcs.items()}
+
+
+def opcode(text: str) -> str:
+    parts = text.split()
+    if parts and parts[0].startswith("@"):
+        parts = parts[1:]
+    return parts[0] if parts else ""
+
+
+def register_compares(loop) -> int:
+    return sum(1 for _, t in loop if opcode(t).startswith("ISETP")
+               and len(re.findall(r"\bR\d+\b", t)) >= 2)
+
+
+def loops(body, labels) -> list:
+    """(start, end) addresses of every backward branch's loop."""
+    out = []
+    for addr, text in body:
+        if opcode(text) != "BRA":
+            continue
+        target = text.split("BRA")[1].strip().strip("`()")
+        if target in labels:
+            tgt = labels[target]
+        else:
+            try:
+                tgt = int(target.split()[-1], 16)
+            except ValueError:
+                continue
+        if tgt < addr:
+            out.append((tgt, addr))
+    return out
+
+
+def compare_loop(body, labels) -> list:
+    """Instructions of the innermost loop (no loop inside it) with the most
+    16-byte shared loads: the loop that compares staged rows."""
+    spans = loops(body, labels)
+    best, best_n = [], 0
+    for lo, hi in spans:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue
+        loop = [(a, t) for a, t in body if lo <= a <= hi]
+        n_lds = sum(1 for _, t in loop if opcode(t).startswith("LDS.128"))
+        if n_lds > best_n or (n_lds == best_n and len(loop) > len(best)):
+            best, best_n = loop, n_lds
+    return best
+
+
+def sass_report(lib_path: str, out_dir, tag: str) -> dict:
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip()[-400:]}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "sass_%s.txt" % tag), "w") as fh:
+            fh.write(proc.stdout)
+    report = {}
+    for name, (body, labels) in functions(proc.stdout).items():
+        hit = next((k for k in SASS_KERNELS if k in name), None)
+        if hit is None:
+            continue
+        loop = compare_loop(body, labels)
+        hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
+        report.setdefault(hit, []).append({
+            "function": name[:100], "loop_instructions": len(loop),
+            "register_compares": register_compares(loop),
+            "opcodes": dict(hist.most_common()),
+        })
+    return report
+
+
+def worker(root: str, parity: bool, sass: bool, reps: int, tag: str, p: int,
+           out_dir) -> int:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    smoke_mod = load_smoke()
+    from datasketch_tpu_torch.kernels import build
+
+    lib_path = build._build()
+    build.library()
+    out = {"root": root, "p": p, "ptxas": ptxas_lines(build.build_log, "topk_scan")}
+    smoke = smoke_mod.Smoke(torch, "cuda")
+    data = smoke.scan_data(p=p)
+    if parity:
+        smoke.phase_kernels_scan(data)
+        out["parity"] = "exact"
+    k2 = smoke.kmod("topk_scan")
+    db, q, n, sizes, q_sizes = (data[x] for x in ("db", "q", "n", "sizes", "q_sizes"))
+    calls = {
+        "topk_scan k=10": lambda: k2.topk_scan(db, q, 10, n),
+        "containment_scan k=16": lambda: k2.containment_topk(db, sizes, q, q_sizes, 16, 0.8),
+        "containment_scan k=128": lambda: k2.containment_topk(db, sizes, q, q_sizes, 128, 0.8),
+    }
+    out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
+    if sass:
+        out["sass"] = sass_report(lib_path, out_dir, tag)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", default=["."])
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--p", type=int, default=128, help="slots per row of the timed table")
+    ap.add_argument("--out", help="directory for each process's output and SASS listings")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tag", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args.worker, args.parity, args.sass, args.reps, args.tag, args.p,
+                      args.out)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    seen, rc = set(), 0
+    for i, root in enumerate(args.roots):
+        tag = "p%d_%d_%s" % (args.p, i, os.path.basename(os.path.abspath(root)))
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root,
+               "--reps", str(args.reps), "--p", str(args.p), "--tag", tag]
+        if args.out:
+            cmd += ["--out", args.out]
+        if root not in seen:
+            cmd.append("--parity")
+            if args.sass:
+                cmd.append("--sass")
+        seen.add(root)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "steps_%s.log" % tag), "w") as fh:
+                fh.write(proc.stdout + proc.stderr)
+        lines = proc.stdout.strip().splitlines()
+        if lines and lines[-1].startswith("{"):
+            print(lines[-1], flush=True)
+        if proc.returncode != 0:
+            print("%s failed (rc %d):\n%s" % (root, proc.returncode, proc.stderr[-3000:]),
+                  flush=True)
+            rc = 1
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
