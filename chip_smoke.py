@@ -15,7 +15,11 @@ Phases (any failed check raises and the script exits non-zero):
 3. kernel parity: each kernel (kernel 2 in its plain and its sizes mode)
    against its plain PyTorch version on the same CUDA tensors, exact, at
    the main paths' shapes and ragged edges (kernel 2 also at P 66 and 100,
-   Q 1, 33 and 1,000, k 1 and 128, and a table scanned in one split),
+   Q 1, 33 and 1,000, k 1 and 128, and a table scanned in one split;
+   kernel 4 at P 66, 100 and 128, Q 1, 33 and 1,000, T 1 to 8,192 around
+   the 64-row tile, one split and many, and the k = 256 scan and k = 2,048
+   containment rerun on it; kernel 7 on rows whose entry order matters, at
+   S 1, 6, 100 and 128, flat and padded),
    timed with CUDA events, with each timed call's bound (the largest of
    bytes over 3.35 TB/s, integer operations over the integer ALU rate and
    f32 operations over 67 TFLOP/s) and, where one PyTorch call computes
@@ -334,11 +338,12 @@ class Smoke:
                 log("  ptxas: " + line.strip())
 
     def phase_kernels(self, n_docs: int = 8192, n_ragged: int = 1001, scan=None,
-                      scan_edges=None) -> None:
+                      scan_edges=None, score_edges=None) -> None:
         """Kernel against plain version on the same tensors (kernel 1 on
         ``n_docs`` docs and ``n_ragged`` ragged ones; kernel 2's data and
         edge shapes: keyword arguments of :meth:`scan_data` and
-        :meth:`phase_kernels_scan`)."""
+        :meth:`phase_kernels_scan`; kernel 4's edge shapes: of
+        :meth:`phase_kernels_score`)."""
         torch = self.torch
         from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -377,13 +382,10 @@ class Smoke:
                          k1.minhash_sign(*args), k1.minhash_sign_plain(*args))
 
         # kernel 2 in its plain, mask and sizes modes
-        k2 = self.kmod("topk_scan")
         data = self.scan_data(**(scan or {}))
         self.phase_kernels_scan(data, **(scan_edges or {}))
         db, q, qidx, n, nq = data["db"], data["q"], data["qidx"], data["n"], data["nq"]
-        ties, q_ties, halves, q_halves = (data[x] for x in ("ties", "q_ties", "halves",
-                                                            "q_halves"))
-        alive, n2 = data["alive"], data["n2"]
+        ties, q_ties, n2 = data["ties"], data["q_ties"], data["n2"]
 
         # kernel 3: rerank with the candidate gather fused in
         k3 = self.kmod("rerank")
@@ -407,8 +409,30 @@ class Smoke:
                      k3.rerank_scores(ties, q_ties[:5], rc),
                      k3.rerank_scores_plain(ties, q_ties[:5], rc))
 
-        # kernel 4: score matrix, and the k > 128 scan built on it
+        self.phase_kernels_score(data, **(score_edges or {}))
+
+    def phase_kernels_score(self, data: dict, edge_t=(1, 63, 64, 65, 8191, 8192),
+                            edge_q=(1, 33, 1000), wide=(20000, 4096),
+                            edge_p=(66, 100, NUM_PERM, 512, 600)) -> None:
+        """Kernel 4 (``score_matrix``) against the plain version on the same
+        tensors, exact: the timed shape (Q x T 8,192 of kernel 2's table,
+        with its bound and ``torch.cdist(p=0)``), tie tables, each P in
+        ``edge_p`` for each Q in ``edge_q`` and T in ``edge_t`` (tiles cut
+        at both sides, one split and many; P 600 is the largest whose block
+        fits the H100's 232,448 bytes of shared memory), the top-k k = 256
+        scan at each P above 128, ``wide`` = (Q, T) where the query blocks
+        alone fill the card (one split), and the k > 128 scans built on it:
+        top-k k = 256 and the ensemble's k = 2,048 containment rerun against
+        the running top-k over the plain version."""
+        torch = self.torch
+        k2 = self.kmod("topk_scan")
         k4 = self.kmod("score_matrix")
+        from datasketch_tpu_torch.ops import lsh_ops
+
+        n, nq, db, q = data["n"], data["nq"], data["db"], data["q"]
+        ties, q_ties, halves, q_halves = (data[x] for x in ("ties", "q_ties", "halves",
+                                                            "q_halves"))
+        alive, n2 = data["alive"], data["n2"]
         tile = db[: min(n, 8192)]
         self.compare("score_matrix", "Q=%d T=%d" % (nq, tile.shape[0]),
                      k4.score_matrix(q, tile), k4.score_matrix_plain(q, tile))
@@ -428,16 +452,44 @@ class Smoke:
             lambda: torch.cdist(qd, td, p=0))
         log("  score_matrix  torch.cdist(p=0) on f64 copies: %s ms"
             % self.record["score_matrix"]["library_ms"])
+        del qd, td, dist, same
         self.compare("score_matrix", "Q=13 T=1000 ties",
                      k4.score_matrix(q_ties[:13], ties[:1000]),
                      k4.score_matrix_plain(q_ties[:13], ties[:1000]))
-        from datasketch_tpu_torch.ops import lsh_ops
-
+        # edge shapes on 2-valued slots (half the slots tie): P not a
+        # multiple of 4 or of 64, T cut inside and at the edge of a tile
+        for p in edge_p:
+            d = self.rand_sigs(max(edge_t), p, 400 + p, values=2)
+            qq = self.rand_sigs(max(edge_q), p, 500 + p, values=2)
+            for nqe in edge_q:
+                for te in edge_t:
+                    self.compare("score_matrix", "P %d Q %d T %d" % (p, nqe, te),
+                                 k4.score_matrix(qq[:nqe], d[:te]),
+                                 k4.score_matrix_plain(qq[:nqe], d[:te]))
+            if p > NUM_PERM:
+                nt = d.shape[0]
+                self.compare("score_matrix", "P %d scan k=%d cutoff" % (p, BIG_K),
+                             lsh_ops.topk_scan(d, qq, BIG_K, nt, count_ge=0.5),
+                             k2.running_topk(qq, d, BIG_K, nt, None, 0.5,
+                                             k4.score_matrix_plain, 8192))
+        qw = self.rand_sigs(wide[0], NUM_PERM, 600, values=3)
+        self.compare("score_matrix", "Q %d T %d (query blocks fill the card)" % wide,
+                     k4.score_matrix(qw, db[: wide[1]]),
+                     k4.score_matrix_plain(qw, db[: wide[1]]))
+        del qw
         self.compare(
             "score_matrix", "scan k=%d ties alive cutoff" % BIG_K,
             lsh_ops.topk_scan(halves, q_halves, BIG_K, n2, alive, count_ge=0.5),
             k2.running_topk(q_halves, halves, BIG_K, n2, alive, 0.5,
                             k4.score_matrix_plain, 8192),
+        )
+        sizes, q_sizes = data["sizes"], data["q_sizes"]
+        big = 2048
+        self.compare(
+            "score_matrix", "containment k=%d rerun cutoff %.1f" % (big, ENS_THRESHOLD),
+            lsh_ops.containment_scan(db, sizes, q[:64], q_sizes[:64], ENS_THRESHOLD, big),
+            k2.running_topk(q[:64], db, big, n, None, ENS_THRESHOLD, k4.score_matrix_plain,
+                            8192, sizes=sizes, q_sizes=q_sizes[:64]),
         )
 
     def scan_data(self, n: int = N_INDEX, nq: int = N_QUERIES, n2: int = 100003,
@@ -619,6 +671,37 @@ class Smoke:
             check(bool((got[3, :, 1] < 0).all()) and bool((got[0] == 0).all())
                   and bool((got[2, :, 0] == 0).all()),
                   "%s: negative t, the empty row or the forced tie are wrong" % case)
+        self.phase_kernels_cws_order(edge_rows)
+
+    def phase_kernels_cws_order(self, n_rows: int = 257) -> None:
+        """Kernel 7 against its plain version on rows whose entry order
+        matters (:func:`cws_order_case`): long rows, a tie between distant
+        dims, falling dims (the first minimum in entry order wins), inactive
+        entries anywhere, an empty row, at S 1, 6, 100 and 128, in the flat
+        CSR and the padded ``cws_many_sparse`` form."""
+        torch = self.torch
+        kc = self.kmod("cws_sparse")
+        from datasketch_tpu_torch.ops import cws_ops
+
+        for d, s in ((W_DIM, 1), (W_DIM, 6), (10001, 100), (W_DIM, W_SAMPLES), (333, 6)):
+            tabs, (vals, idx, indptr), ties = cws_order_case(torch, d, s, self.device, n_rows)
+            want = kc.cws_sparse_plain(vals, idx, indptr, *tabs)
+            check(bool((want[0] == 0).all()), "D %d S %d: the empty row is not (0, 0)" % (d, s))
+            for row, dim in ties:
+                check(bool((want[row, :, 0] == dim).all()),
+                      "D %d S %d: row %d's tie does not go to dim %d" % (d, s, row, dim))
+            self.compare("cws_sparse", "entry order D %d S %d" % (d, s),
+                         kc.cws_sparse(vals, idx, indptr, *tabs), want)
+            # the padded form: each row right-padded with (idx 0, val 0)
+            lengths = indptr[1:] - indptr[:-1]
+            nz = int(lengths.max())
+            col = torch.arange(nz, device=self.device)
+            valid = col[None, :] < lengths[:, None]
+            pos = torch.where(valid, indptr[:-1, None] + col[None, :], 0)
+            self.compare("cws_sparse", "entry order D %d S %d padded" % (d, s),
+                         cws_ops.cws_many_sparse(torch.where(valid, vals[pos], 0.0),
+                                                 torch.where(valid, idx[pos], 0), *tabs),
+                         want)
 
     def phase_signatures(self, n_docs: int = SIG_DOCS):
         """End-to-end signatures of the bench corpus."""
@@ -1505,6 +1588,44 @@ def cws_edge_case(torch, d: int, s: int, device, n_rows: int = 257):
     w[6, d - 3: d - 1] = 1.5
     tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
     return tabs, torch.from_numpy(w).to(device)
+
+
+def cws_order_case(torch, d: int, s: int, device, n_rows: int):
+    """Tables (transposed [d, s], drawn as the generator draws them) and CSR
+    rows (vals f32, idx int32, indptr int64) whose entry order matters,
+    with a = 64 and b = 192 (d > 192), b's parameters a copy of a's: row 0
+    empty; 1 every third dim; 2 dims a, b at one weight (a tie: a, the
+    first entry, wins); 3 falling dims; 4 ascending dims with zero and
+    negative entries between them and a (0, 0) pad at the end; 5 dims b, a
+    at one weight (falling and tied: b, the first, wins); 6 only tiny
+    weights (negative t); the rest ~2 % dense with |N(0, 1)| weights. Also
+    returns the forced ties as (row, winning dim) pairs."""
+    rng = np.random.RandomState(d * 7 + s)
+    rs = rng.gamma(2, 1, (d, s)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (d, s))).astype(np.float32)
+    betas = rng.uniform(0, 1, (d, s)).astype(np.float32)
+    a, b = 64, 192
+    for t in (rs, ln_cs, betas):
+        t[b] = t[a]
+    third = list(range(0, d, 3))
+    rows = [
+        ([], []),
+        (third, list(np.abs(rng.randn(len(third))) + 0.1)),
+        ([a, b], [0.75, 0.75]),
+        ([d - 1, b, a, 128, 3, 0], list(np.abs(rng.randn(6)) + 0.1)),
+        ([1, 5, 128, 256, d - 2, 0], [1.0, 0.0, -1.0, 2.0, 0.5, 0.0]),
+        ([b, a], [0.75, 0.75]),
+        (list(range(2, d, 17)), [1e-30] * len(range(2, d, 17))),
+    ]
+    for _ in range(len(rows), n_rows):
+        dims = np.nonzero(rng.rand(d) < 0.02)[0]
+        rows.append((list(dims), list(np.abs(rng.randn(dims.size)))))
+    indptr = np.concatenate([[0], np.cumsum([len(r[0]) for r in rows])]).astype(np.int64)
+    idx = np.concatenate([np.asarray(r[0], dtype=np.int32) for r in rows])
+    vals = np.concatenate([np.asarray(r[1], dtype=np.float32) for r in rows])
+    tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
+    csr = tuple(torch.from_numpy(x).to(device) for x in (vals, idx, indptr))
+    return tabs, csr, [(2, a), (5, b)]
 
 
 def floor_near_tie(row, k: int, smp: int, gen) -> bool:

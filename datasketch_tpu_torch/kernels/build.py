@@ -53,7 +53,8 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t).
 _SIGNATURES = {
     "ds_minhash_sign": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "ds_score_matrix": [_P, _P, _I, _L, _I, _P, _P],
+    "ds_score_matrix": [_P, _P, _I, _L, _I, _I, _L, _P, _P],
+    "ds_score_blocks_per_sm": [_I, _P],
     "ds_rerank": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
     "ds_topk_scan": [_P, _P, _P, _P, _P, _I, _L, _I, _L, _I, _F, _I, _I, _L, _P, _P, _P, _P],
     "ds_topk_scan_blocks_per_sm": [_I, _I, _P],

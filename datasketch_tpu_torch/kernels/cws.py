@@ -158,7 +158,8 @@ def cws_sparse(vals, idx, indptr, rs_t, lncs_t, betas_t):
     Args:
         vals: f32[nnz] weights; entries <= 0 are inactive.
         idx: int32[nnz] dims (< D), ascending within each row for the
-            lowest-dim tie rule (the first entry wins a tie).
+            lowest-dim tie rule (the first entry wins a tie; rows in any
+            order give the first minimum in entry order).
         indptr: int64[B + 1] row offsets into ``vals`` / ``idx``.
         rs_t, lncs_t, betas_t: f32[D, S] transposed generator parameters.
     """

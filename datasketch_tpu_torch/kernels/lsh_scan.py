@@ -15,13 +15,11 @@ kernel 4 for k > 128.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from datasketch_tpu_torch.device import inv_width
-from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.kernels import build, tiling
 from datasketch_tpu_torch.kernels.score import score_matrix_plain
 
 __all__ = [
@@ -40,9 +38,6 @@ launches = 0
 launches_sizes = 0
 
 MAX_K = 128  # the kernel keeps at most this many entries per query
-_QB, _RB = 32, 64  # query rows per block, db rows per tile (csrc/lsh_scan.cu)
-_MAX_SPLITS = 64
-_MIN_TILES = 8  # least tiles per split
 _ID_MASK = (1 << 31) - 1
 _PLAIN_TILE = 4096
 
@@ -53,42 +48,6 @@ def min_hit_count(cutoff: float, p: int) -> int:
     scores = np.arange(p + 1, dtype=np.float32) * np.float32(inv_width(p))
     ok = np.nonzero(scores >= np.float32(cutoff))[0]
     return int(ok[0]) if ok.size else p + 1
-
-
-def _grid(nq: int, n: int, sms: int, blocks_per_sm: int) -> tuple:
-    """(splits, rows per split) of the db axis for ``nq`` queries over ``n``
-    rows on ``sms`` SMs that each hold ``blocks_per_sm`` scan blocks.
-
-    The query blocks times the splits fill the card's resident slots in
-    one whole wave (a block that starts in a second wave runs while most
-    of the card idles), within at most ``_MAX_SPLITS`` splits of at least
-    ``_MIN_TILES`` tiles each. Where the query blocks alone fill a wave,
-    one split. A split is a whole number of tiles, and the splits cover
-    the rows exactly once, none of them empty.
-    """
-    q_blocks = -(-nq // _QB)
-    most = max(1, min(_MAX_SPLITS, n // (_MIN_TILES * _RB)))
-    want = max(1, min(sms * blocks_per_sm // q_blocks, most))
-    n = max(n, 1)
-    rows = -(-(-(-n // want)) // _RB) * _RB
-    return -(-n // rows), rows
-
-
-_blocks_per_sm_cache: dict = {}
-
-
-def _blocks_per_sm(lib, dev, p: int, k: int) -> int:
-    """Resident scan blocks per SM at (p, k), asked of the card once."""
-    key = (dev.index, p, k)
-    if key not in _blocks_per_sm_cache:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            build.check(lib.ds_topk_scan_blocks_per_sm(p, k, ctypes.addressof(out)),
-                        "ds_topk_scan_blocks_per_sm")
-        if out.value < 1:
-            raise RuntimeError("the scan kernel does not fit on an SM at P %d, k %d" % (p, k))
-        _blocks_per_sm_cache[key] = out.value
-    return _blocks_per_sm_cache[key]
 
 
 def running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
@@ -236,7 +195,9 @@ def _launch(db, q, k, n_valid, alive, min_count, sizes, q_sizes, cutoff):
     if nq == 0:
         return ids, sc, cnt
     lib = build.library()
-    splits, rows = _grid(nq, n, build.num_sms(q), _blocks_per_sm(lib, dev, p, k))
+    splits, rows = tiling.grid(
+        nq, n, build.num_sms(q),
+        tiling.blocks_per_sm(lib, "ds_topk_scan_blocks_per_sm", dev, p, k))
     part_cnt = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
     part_id = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
     stream = build.stream_ptr(q)

@@ -2,7 +2,8 @@
 
 CUDA source: ``datasketch_tpu_torch/csrc/score.cu`` (replaces
 ``datasketch_tpu/ops/pallas_kernels.py::_score_kernel``). CPU tensors take
-the plain PyTorch version; CUDA tensors launch the kernel or raise.
+the plain PyTorch version; CUDA tensors launch the kernel or raise. The
+grid is :func:`~datasketch_tpu_torch.kernels.tiling.grid`'s, as kernel 2's.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from datasketch_tpu_torch.device import counts_to_scores
-from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.kernels import build, tiling
 
 __all__ = ["score_matrix", "score_matrix_plain", "eq_counts_plain", "launches"]
 
@@ -45,10 +46,12 @@ def score_matrix(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     if db.shape[1] != p or q.dtype != torch.int32 or db.dtype != torch.int32:
         raise ValueError("score_matrix: want int32 [Q, P] and [T, P]")
     out = torch.empty((nq, nt), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    splits, rows = tiling.grid(nq, nt, build.num_sms(q),
+                               tiling.blocks_per_sm(lib, "ds_score_blocks_per_sm", q.device, p))
     global launches
     launches += 1
-    err = build.library().ds_score_matrix(
-        q.data_ptr(), db.data_ptr(), nq, nt, p, out.data_ptr(), build.stream_ptr(q)
-    )
+    err = lib.ds_score_matrix(q.data_ptr(), db.data_ptr(), nq, nt, p, splits, rows,
+                              out.data_ptr(), build.stream_ptr(q))
     build.check(err, "ds_score_matrix")
     return out

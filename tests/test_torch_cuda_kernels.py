@@ -18,7 +18,7 @@ from datasketch_tpu_torch import (
     TorchMinHashLSHEnsemble,
     WeightedMinHashGenerator,
 )
-from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score, tiling
 from datasketch_tpu_torch.ops import bbit_ops, cws_ops, lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -110,7 +110,7 @@ def test_scan_kernel_single_split(dev, sizes_mode):
     from datasketch_tpu_torch.kernels import build
 
     n, nq = 1000, 33
-    assert lsh_scan._grid(nq, n, build.num_sms(_sigs(dev, 1, 4, 0)), 4)[0] == 1
+    assert tiling.grid(nq, n, build.num_sms(_sigs(dev, 1, 4, 0)), 4)[0] == 1
     db = _sigs(dev, n, 128, 50, values=2)
     q = _sigs(dev, nq, 128, 51, values=2)
     if sizes_mode:
@@ -188,6 +188,63 @@ def test_rerank_kernel_matches_plain(dev):
     cand[7] = -1
     got = _launched(rerank, lambda: rerank.rerank_scores(db, q, cand))
     assert torch.equal(got, rerank.rerank_scores_plain(db, q, cand))
+
+
+@pytest.mark.parametrize("p", [66, 100, 128])
+@pytest.mark.parametrize("nq", [1, 33, 1000])
+def test_score_kernel_edge_shapes(dev, p, nq):
+    """Kernel 4 at P not a multiple of 4 or 64, ragged Q, and T cut inside
+    and at the edges of a 64-row tile, from one split (T 1) to many (T
+    8,192 at Q 1,000), on 2-valued slots (ties everywhere)."""
+    db = _sigs(dev, 8192, p, 70 + p, values=2)
+    q = _sigs(dev, nq, p, 71 + nq, values=2)
+    for t in (1, 63, 64, 65, 8191, 8192):
+        got = _launched(score, lambda: score.score_matrix(q, db[:t]))
+        assert torch.equal(got, score.score_matrix_plain(q, db[:t])), t
+
+
+@pytest.mark.parametrize("p", [512, 600])
+def test_score_kernel_and_large_k_scan_at_wide_p(dev, p):
+    """Kernel 4 at P 512 and at 600, the largest P whose block (96 rows of
+    round4(P) + 4 ints) fits the H100's 232,448 bytes of shared memory, and
+    the k = 200 scan built on it."""
+    db = _sigs(dev, 8192, p, 77 + p, values=2)
+    q = _sigs(dev, 70, p, 78 + p, values=2)
+    for t in (65, 8192):
+        got = _launched(score, lambda: score.score_matrix(q, db[:t]))
+        assert torch.equal(got, score.score_matrix_plain(q, db[:t])), t
+    got = lsh_ops.topk_scan(db, q, 200, n_valid=8000, count_ge=0.5)
+    want = lsh_scan.running_topk(q, db, 200, 8000, None, 0.5, score.score_matrix_plain)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_score_kernel_grid_of_one_split(dev):
+    """Query blocks that fill the card alone: one split, each block walking
+    every tile of the table."""
+    from datasketch_tpu_torch.kernels import build
+
+    q = _sigs(dev, 20000, 128, 72, values=3)
+    db = _sigs(dev, 4096, 128, 73, values=3)
+    blocks = tiling.blocks_per_sm(build.library(), "ds_score_blocks_per_sm", q.device, 128)
+    assert tiling.grid(20000, 4096, build.num_sms(q), blocks)[0] == 1
+    got = _launched(score, lambda: score.score_matrix(q, db))
+    assert torch.equal(got, score.score_matrix_plain(q, db))
+
+
+def test_containment_rerun_past_128_matches_plain(dev):
+    """The ensemble's k = 2,048 containment rerun on kernel 4 against the
+    running top-k over the plain version."""
+    db = _sigs(dev, 20011, 128, 74, values=3)
+    q = db[:40].clone()
+    sizes = _sizes(dev, 20011, 75)
+    sizes[::13] = 0
+    q_sizes = _sizes(dev, 40, 76)
+    got = lsh_ops.containment_scan(db, sizes, q, q_sizes, 0.3, 2048)
+    want = lsh_scan.running_topk(q, db, 2048, 20011, None, 0.3, score.score_matrix_plain,
+                                 8192, sizes=sizes, q_sizes=q_sizes)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("p", [66, 128])
@@ -329,6 +386,36 @@ def test_cws_kernels_match_plain(dev, d, s):
     assert cws.launches_sparse == before + 1
     assert torch.equal(sparse, cws.cws_sparse_plain(*args, *tables))
     assert torch.equal(sparse, dense)
+
+
+@pytest.mark.parametrize("d,s", [(10000, 1), (10000, 6), (10001, 100), (10000, 128),
+                                 (333, 6)])
+def test_cws_sparse_entry_order(dev, d, s):
+    """Kernel 7 against its plain twin on rows whose entry order matters
+    (``chip_smoke.cws_order_case``): a tie between distant dims, falling
+    dims (the first minimum in entry order wins), inactive entries
+    anywhere, long rows, an empty row; and the padded form, equal to
+    kernel 6 on the rows densified where their dims ascend."""
+    import chip_smoke
+
+    tabs, (vals, idx, indptr), ties = chip_smoke.cws_order_case(torch, d, s, dev, 300)
+    want = cws.cws_sparse_plain(vals, idx, indptr, *tabs)
+    for row, dim in ties:
+        assert (want[row, :, 0] == dim).all()
+    before = cws.launches_sparse
+    got = cws.cws_sparse(vals, idx, indptr, *tabs)
+    torch.cuda.synchronize()
+    assert cws.launches_sparse == before + 1
+    assert torch.equal(got, want)
+    lengths = indptr[1:] - indptr[:-1]
+    col = torch.arange(int(lengths.max()), device=dev)
+    valid = col[None, :] < lengths[:, None]
+    pos = torch.where(valid, indptr[:-1, None] + col[None, :], 0)
+    padded = cws_ops.cws_many_sparse(torch.where(valid, vals[pos], 0.0),
+                                     torch.where(valid, idx[pos], 0), *tabs)
+    assert torch.equal(padded, want)
+    dense = cws.cws_dense(chip_smoke.densify(torch, vals, idx, indptr, d), *tabs)
+    assert torch.equal(dense[[0, 1, 2, 6]], want[[0, 1, 2, 6]])
 
 
 def test_kt_slots_on_the_card_match_host(dev):

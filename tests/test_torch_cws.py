@@ -146,3 +146,35 @@ def test_kt_slots_match_jax():
     assert np.array_equal(cws_ops.kt_slots_np(kt), want)
     assert np.array_equal(cws_ops.kt_slots(_t(kt.astype(np.int64))).numpy().view(np.uint32),
                           want)
+
+
+@pytest.mark.parametrize("s,d", [(6, 400), (100, 333)])
+def test_cws_sparse_entry_order_matches_jax(s, d):
+    """Kernel 7's plain twin on rows whose entry order matters (a tie
+    between distant dims, falling dims, inactive entries anywhere, a long
+    row) equals the JAX package's padded sparse form: the first minimum in
+    entry order. Row 0 is empty, where the two forms differ by design."""
+    import chip_smoke
+
+    tabs, (vals, idx, indptr), ties = chip_smoke.cws_order_case(torch, d, s, "cpu", 16)
+    got = cws.cws_sparse(vals, idx, indptr, *tabs).numpy()
+    assert (got[0] == 0).all()
+    for row, dim in ties:
+        assert (got[row, :, 0] == dim).all()
+    lengths = (indptr[1:] - indptr[:-1]).numpy()
+    vals_p = np.zeros((16, lengths.max()), np.float32)
+    idx_p = np.zeros((16, lengths.max()), np.int32)
+    for i in range(16):
+        lo, hi = int(indptr[i]), int(indptr[i + 1])
+        vals_p[i, : hi - lo] = vals[lo:hi].numpy()
+        idx_p[i, : hi - lo] = idx[lo:hi].numpy()
+    want = np.asarray(jax_cws.cws_many_sparse(vals_p, idx_p, *[t.numpy() for t in tabs]))
+    w = np.zeros((16, d), np.float32)  # for the near-tie message only
+    for i in range(16):
+        for j, v in zip(idx_p[i], vals_p[i]):
+            if v > 0 and w[i, j] <= 0:
+                w[i, j] = v
+    rs, betas = tabs[0].numpy().T, tabs[2].numpy().T
+    assert_kt_equal(got[1:], want[1:], w[1:], rs, betas)
+    padded = cws_ops.cws_many_sparse(_t(vals_p), _t(idx_p), *tabs).numpy()
+    assert np.array_equal(padded, got)

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Kernel 2 (the fused exact-scan top-k) of one or more checkouts, timed in
-turns on one card.
+"""One kernel of one or more checkouts, timed in turns on one card: kernel 2
+(the fused exact-scan top-k), kernel 4 (the score matrix) or kernel 7 (CWS
+over CSR rows).
 
 Usage, from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/scan_steps.py [--sass] [--reps N] [--p P] [--out DIR] [ROOT ...]
+    python3 tools/scan_steps.py [--kernel scan|score|cws_sparse] [--sass]
+                                [--reps N] [--p P] [--out DIR] [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this
 one); give the same one twice to time it twice (for example ``OLD . .
 OLD``). For each ROOT in the order given, one process imports
 ``datasketch_tpu_torch`` from that ROOT, builds its kernels (``nvcc``) and
-prints ptxas' registers, shared memory and spills for the scan kernel. The
-first time a ROOT comes up, it also holds kernel 2 exactly equal to its
-plain version on every case of ``chip_smoke.py``'s kernel-2 phase
-(``Smoke.phase_kernels_scan``) and fails if one differs. Every process then
-times, with CUDA events (mean of N calls after a warm one), the timed
-shapes: Q 1,024 x N 1,048,576 x P (128 unless ``--p``) at k 10, and the
-sizes mode at k 16 and k 128 (cutoff 0.8). With ``--sass`` it also prints
-the opcode counts of the innermost loop that compares staged rows in the
-scan, score, rerank and b-bit kernels (``cuobjdump -sass``). With
-``--out DIR`` each process's full output, and with ``--sass`` each build's
-whole SASS listing, are written under DIR.
+prints ptxas' registers, shared memory and spills for the kernel. The
+first time a ROOT comes up, it also holds the kernel exactly equal to its
+plain version on every case of ``chip_smoke.py``'s phase for it
+(``Smoke.phase_kernels_scan``, ``phase_kernels_score``,
+``phase_kernels_cws``) and fails if one differs. Every process then
+times, with CUDA events (mean of N calls after a warm one; ``--reps 0``:
+no timing), the timed shapes: ``scan`` Q 1,024 x N 1,048,576 x P (128
+unless ``--p``) at k 10, and the sizes mode at k 16 and k 128 (cutoff
+0.8); ``score`` Q 1,024 x T 8,192 x P; ``cws_sparse`` the weighted path's
+1,048,576 CSR rows at D 10,000, S 128. With ``--sass`` it also prints the
+opcode counts of the kernel's inner loop (``cuobjdump -sass``): for
+``scan`` and ``score`` the innermost loop that compares staged rows in the
+scan, score, rerank and b-bit kernels; for ``cws_sparse`` the innermost
+loop with the most ``MUFU`` (the fold's division), and its instructions
+per ``MUFU``: warp instructions per 32 (entry, sample) folds. With
+``--out DIR`` each process's full output, and with ``--sass`` each
+build's whole SASS listing, are written under DIR.
 
 Prints one JSON line per process and, first, the card's name and power
 limit. Exits non-zero if a build or a parity check failed.
@@ -39,6 +47,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel", "rerank_kernel")
+PTXAS_NAMES = {"scan": "topk_scan", "score": "score_kernel", "cws_sparse": "cws_sparse"}
 
 
 def load_smoke():
@@ -123,22 +132,23 @@ def loops(body, labels) -> list:
     return out
 
 
-def compare_loop(body, labels) -> list:
+def compare_loop(body, labels, key: str = "LDS.128") -> list:
     """Instructions of the innermost loop (no loop inside it) with the most
-    16-byte shared loads: the loop that compares staged rows."""
+    instructions whose opcode starts with ``key``: for 16-byte shared
+    loads, the loop that compares staged rows."""
     spans = loops(body, labels)
     best, best_n = [], 0
     for lo, hi in spans:
         if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
             continue
         loop = [(a, t) for a, t in body if lo <= a <= hi]
-        n_lds = sum(1 for _, t in loop if opcode(t).startswith("LDS.128"))
-        if n_lds > best_n or (n_lds == best_n and len(loop) > len(best)):
-            best, best_n = loop, n_lds
+        n_key = sum(1 for _, t in loop if opcode(t).startswith(key))
+        if n_key > best_n or (n_key == best_n and len(loop) > len(best)):
+            best, best_n = loop, n_key
     return best
 
 
-def sass_report(lib_path: str, out_dir, tag: str) -> dict:
+def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
     cuobjdump = "/usr/local/cuda/bin/cuobjdump"
     proc = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -148,22 +158,66 @@ def sass_report(lib_path: str, out_dir, tag: str) -> dict:
         with open(os.path.join(out_dir, "sass_%s.txt" % tag), "w") as fh:
             fh.write(proc.stdout)
     report = {}
+    cws = kernel == "cws_sparse"
     for name, (body, labels) in functions(proc.stdout).items():
-        hit = next((k for k in SASS_KERNELS if k in name), None)
+        hit = next((k for k in (("cws_sparse",) if cws else SASS_KERNELS) if k in name), None)
         if hit is None:
             continue
-        loop = compare_loop(body, labels)
+        loop = compare_loop(body, labels, "MUFU" if cws else "LDS.128")
         hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
-        report.setdefault(hit, []).append({
-            "function": name[:100], "loop_instructions": len(loop),
-            "register_compares": register_compares(loop),
-            "opcodes": dict(hist.most_common()),
-        })
+        entry = {"function": name[:100], "loop_instructions": len(loop),
+                 "opcodes": dict(hist.most_common())}
+        if cws:
+            entry["per_mufu"] = len(loop) / max(1, hist["MUFU"])
+        else:
+            entry["register_compares"] = register_compares(loop)
+        report.setdefault(hit, []).append(entry)
     return report
 
 
-def worker(root: str, parity: bool, sass: bool, reps: int, tag: str, p: int,
-           out_dir) -> int:
+def scan_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
+    data = smoke.scan_data(p=p)
+    if parity:
+        smoke.phase_kernels_scan(data)
+    k2 = smoke.kmod("topk_scan")
+    db, q, n, sizes, q_sizes = (data[x] for x in ("db", "q", "n", "sizes", "q_sizes"))
+    return {
+        "topk_scan k=10": lambda: k2.topk_scan(db, q, 10, n),
+        "containment_scan k=16": lambda: k2.containment_topk(db, sizes, q, q_sizes, 16, 0.8),
+        "containment_scan k=128": lambda: k2.containment_topk(db, sizes, q, q_sizes, 128, 0.8),
+    }
+
+
+def score_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
+    data = smoke.scan_data(p=p)
+    if parity:
+        smoke.phase_kernels_score(data)
+    k4 = smoke.kmod("score_matrix")
+    q, tile = data["q"], data["db"][:8192]
+    return {"score_matrix Q=1024 T=8192": lambda: k4.score_matrix(q, tile)}
+
+
+def cws_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
+    import torch
+
+    from datasketch_tpu_torch import WeightedMinHashGenerator
+
+    if parity:
+        smoke.phase_kernels_cws()
+    torch.cuda.empty_cache()
+    kc = smoke.kmod("cws_sparse")
+    gen = WeightedMinHashGenerator(smoke_mod.W_DIM, smoke_mod.W_SAMPLES, seed=1,
+                                   device=smoke.device)
+    args = smoke_mod.make_weighted_rows(torch, smoke_mod.W_ROWS, smoke_mod.W_DIM,
+                                        smoke.device, seed=17) + tuple(gen.params_t())
+    return {"cws_sparse 1M rows": lambda: kc.cws_sparse(*args)}
+
+
+CALLS = {"scan": scan_calls, "score": score_calls, "cws_sparse": cws_calls}
+
+
+def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str,
+           p: int, out_dir) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -172,22 +226,16 @@ def worker(root: str, parity: bool, sass: bool, reps: int, tag: str, p: int,
 
     lib_path = build._build()
     build.library()
-    out = {"root": root, "p": p, "ptxas": ptxas_lines(build.build_log, "topk_scan")}
+    out = {"root": root, "kernel": kernel, "p": p,
+           "ptxas": ptxas_lines(build.build_log, PTXAS_NAMES[kernel])}
     smoke = smoke_mod.Smoke(torch, "cuda")
-    data = smoke.scan_data(p=p)
+    calls = CALLS[kernel](smoke_mod, smoke, parity, p)
     if parity:
-        smoke.phase_kernels_scan(data)
         out["parity"] = "exact"
-    k2 = smoke.kmod("topk_scan")
-    db, q, n, sizes, q_sizes = (data[x] for x in ("db", "q", "n", "sizes", "q_sizes"))
-    calls = {
-        "topk_scan k=10": lambda: k2.topk_scan(db, q, 10, n),
-        "containment_scan k=16": lambda: k2.containment_topk(db, sizes, q, q_sizes, 16, 0.8),
-        "containment_scan k=128": lambda: k2.containment_topk(db, sizes, q, q_sizes, 128, 0.8),
-    }
-    out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
+    if reps > 0:
+        out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
     if sass:
-        out["sass"] = sass_report(lib_path, out_dir, tag)
+        out["sass"] = sass_report(lib_path, out_dir, tag, kernel)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -195,8 +243,9 @@ def worker(root: str, parity: bool, sass: bool, reps: int, tag: str, p: int,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", default=["."])
+    ap.add_argument("--kernel", choices=sorted(CALLS), default="scan")
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=5, help="timed calls (0: parity and SASS only)")
     ap.add_argument("--p", type=int, default=128, help="slots per row of the timed table")
     ap.add_argument("--out", help="directory for each process's output and SASS listings")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
@@ -204,16 +253,17 @@ def main() -> int:
     ap.add_argument("--tag", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.parity, args.sass, args.reps, args.tag, args.p,
-                      args.out)
+        return worker(args.worker, args.kernel, args.parity, args.sass, args.reps, args.tag,
+                      args.p, args.out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     seen, rc = set(), 0
     for i, root in enumerate(args.roots):
-        tag = "p%d_%d_%s" % (args.p, i, os.path.basename(os.path.abspath(root)))
+        tag = "%s_p%d_%d_%s" % (args.kernel, args.p, i, os.path.basename(os.path.abspath(root)))
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", root,
-               "--reps", str(args.reps), "--p", str(args.p), "--tag", tag]
+               "--kernel", args.kernel, "--reps", str(args.reps), "--p", str(args.p),
+               "--tag", tag]
         if args.out:
             cmd += ["--out", args.out]
         if root not in seen:
