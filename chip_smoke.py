@@ -18,8 +18,11 @@ Phases (any failed check raises and the script exits non-zero):
    Q 1, 33 and 1,000, k 1 and 128, and a table scanned in one split;
    kernel 4 at P 66, 100 and 128, Q 1, 33 and 1,000, T 1 to 8,192 around
    the 64-row tile, one split and many, and the k = 256 scan and k = 2,048
-   containment rerun on it; kernel 7 on rows whose entry order matters, at
-   S 1, 6, 100 and 128, flat and padded),
+   containment rerun on it; kernel 3 at P 66, 100, 128, 512 and 600 and C
+   1, 31, 32, 33, 333 and 3,200 with -1 and duplicated slots; kernel 6 at S
+   1 to 1,030 and D 1, 333, 10,000 and 10,001 with fully dense rows and ties
+   across chunks and segments; kernel 7 on rows whose entry order matters,
+   at S 1, 6, 100 and 128, flat and padded),
    timed with CUDA events, with each timed call's bound (the largest of
    bytes over 3.35 TB/s, integer operations over the integer ALU rate and
    f32 operations over 67 TFLOP/s) and, where one PyTorch call computes
@@ -338,12 +341,12 @@ class Smoke:
                 log("  ptxas: " + line.strip())
 
     def phase_kernels(self, n_docs: int = 8192, n_ragged: int = 1001, scan=None,
-                      scan_edges=None, score_edges=None) -> None:
+                      scan_edges=None, score_edges=None, rerank_edges=None) -> None:
         """Kernel against plain version on the same tensors (kernel 1 on
         ``n_docs`` docs and ``n_ragged`` ragged ones; kernel 2's data and
         edge shapes: keyword arguments of :meth:`scan_data` and
-        :meth:`phase_kernels_scan`; kernel 4's edge shapes: of
-        :meth:`phase_kernels_score`)."""
+        :meth:`phase_kernels_scan`; kernel 3's and kernel 4's edge shapes:
+        of :meth:`phase_kernels_rerank` and :meth:`phase_kernels_score`)."""
         torch = self.torch
         from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -384,15 +387,36 @@ class Smoke:
         # kernel 2 in its plain, mask and sizes modes
         data = self.scan_data(**(scan or {}))
         self.phase_kernels_scan(data, **(scan_edges or {}))
-        db, q, qidx, n, nq = data["db"], data["q"], data["qidx"], data["n"], data["nq"]
-        ties, q_ties, n2 = data["ties"], data["q_ties"], data["n2"]
 
-        # kernel 3: rerank with the candidate gather fused in
+        self.phase_kernels_rerank(data, **(rerank_edges or {}))
+        self.phase_kernels_score(data, **(score_edges or {}))
+
+    def rerank_cand(self, data: dict, c: int = 3200):
+        """Kernel 3's timed candidate list over the scan table: ``c`` slots
+        a query, the first third the planted source row, then random rows,
+        30 % of all slots -1."""
+        torch = self.torch
+        g = torch.Generator(device=self.device).manual_seed(12)
+        cand = torch.randint(0, data["n"], (data["nq"], c), generator=g, device=self.device,
+                             dtype=torch.int32)
+        cand[:, : c // 3] = data["qidx"][:, None].to(torch.int32)
+        return torch.where(torch.rand(cand.shape, generator=g, device=self.device) < 0.3,
+                           -1, cand)
+
+    def phase_kernels_rerank(self, data: dict, edge_p=(66, 100, NUM_PERM, 512, 600),
+                             edge_c=(1, 31, 32, 33, 333, 3200), edge_n: int = 5003,
+                             edge_q: int = 37) -> None:
+        """Kernel 3 against its plain version: the timed list over the scan
+        table, then, at each P of ``edge_p`` and C of ``edge_c``
+        (:func:`rerank_edge_case`), a query of -1 slots only, duplicated
+        ids, -1 between live slots and random lists over a tie-heavy table
+        (at P 100 one that starts 4 bytes past a 16-byte boundary)."""
+        torch = self.torch
         k3 = self.kmod("rerank")
-        cand = torch.randint(0, n, (nq, 3200), generator=g, device=dev, dtype=torch.int32)
-        cand[:, : 3200 // 3] = qidx[:, None].to(torch.int32)  # the planted source
-        cand = torch.where(torch.rand(cand.shape, generator=g, device=dev) < 0.3, -1, cand)
-        self.compare("rerank", "Q=%d C=3200 over N=%d" % (nq, n),
+        db, q, n, nq = data["db"], data["q"], data["n"], data["nq"]
+        cand = self.rerank_cand(data)
+        c = cand.shape[1]
+        self.compare("rerank", "Q=%d C=%d over N=%d" % (nq, c, n),
                      k3.rerank_scores(db, q, cand), k3.rerank_scores_plain(db, q, cand))
         self.record["rerank"]["ms"] = self.time_ms(lambda: k3.rerank_scores(db, q, cand))
         self.record["rerank"]["plain_ms"] = self.time_ms(
@@ -401,15 +425,19 @@ class Smoke:
         # per live (query, candidate, slot): one compare and one add; the
         # table rows read are the distinct candidates
         self.bound("rerank",
-                   4 * (int(torch.unique(live).numel()) + nq) * NUM_PERM + 8 * cand.numel(),
-                   int_ops=SLOT_INT_OPS * live.numel() * NUM_PERM)
-        rc = torch.randint(-1, n2, (5, 70), generator=g, device=dev, dtype=torch.int32)
-        rc[2] = -1
-        self.compare("rerank", "Q=5 C=70 ties, an all -1 row",
-                     k3.rerank_scores(ties, q_ties[:5], rc),
-                     k3.rerank_scores_plain(ties, q_ties[:5], rc))
-
-        self.phase_kernels_score(data, **(score_edges or {}))
+                   4 * (int(torch.unique(live).numel()) + nq) * q.shape[1] + 8 * cand.numel(),
+                   int_ops=SLOT_INT_OPS * live.numel() * q.shape[1])
+        for p in edge_p:
+            db_e = self.rand_sigs(edge_n, p, 20 + p, values=4)
+            if p == 100:  # a table 4 bytes past a 16-byte boundary
+                buf = torch.empty(edge_n * p + 1, dtype=torch.int32, device=self.device)
+                db_e = buf[1:].view(edge_n, p).copy_(db_e)
+            q_e = self.rand_sigs(edge_q + 1, p, 21 + p, values=4)[1:]
+            for ce in edge_c:
+                cand_e = rerank_edge_case(torch, edge_n, edge_q, ce, self.device, seed=p + ce)
+                self.compare("rerank", "P %d C %d edges" % (p, ce),
+                             k3.rerank_scores(db_e, q_e, cand_e),
+                             k3.rerank_scores_plain(db_e, q_e, cand_e))
 
     def phase_kernels_score(self, data: dict, edge_t=(1, 63, 64, 65, 8191, 8192),
                             edge_q=(1, 33, 1000), wide=(20000, 4096),
@@ -612,9 +640,9 @@ class Smoke:
     def phase_kernels_cws(self, n_rows: int = W_ROWS, dense_rows: int = W_DENSE_ROWS,
                           edge_rows: int = 257) -> None:
         """Kernels 6 and 7 against their plain versions: kernel 7 on the
-        weighted path's whole CSR batch, kernel 6 on its densified head in
-        the generator's chunks (and equal to kernel 7 there), then the
-        ragged edges."""
+        weighted path's whole CSR batch, then kernel 6
+        (:meth:`phase_kernels_cws_dense`), then both on the ragged edges
+        (:meth:`phase_kernels_cws_edges`)."""
         torch = self.torch
         from datasketch_tpu_torch import WeightedMinHashGenerator
 
@@ -630,17 +658,56 @@ class Smoke:
         rec = self.record["cws_sparse"]
         rec["ms"] = self.time_ms(lambda: kc.cws_sparse(*args))
         rec["plain_ms"] = self.time_ms(lambda: kc.cws_sparse_plain(*args), iters=1, warmup=0)
-        tab_bytes = 12 * W_DIM * W_SAMPLES
         # per active (row, dim, sample): division, add, floor, subtract,
         # multiply, subtract, subtract, compare; a log per active (row, dim)
         active = int((vals > 0).sum())
         self.bound("cws_sparse",
-                   8 * vals.numel() + 8 * (n_rows + 1) + tab_bytes + 8 * n_rows * W_SAMPLES,
+                   8 * vals.numel() + 8 * (n_rows + 1) + 12 * W_DIM * W_SAMPLES
+                   + 8 * n_rows * W_SAMPLES,
                    f32_ops=8.0 * active * W_SAMPLES + active)
-        head = indptr[: dense_rows + 1]
-        nnz = int(head[-1])
-        sparse_kt = kc.cws_sparse(vals[:nnz], idx[:nnz], head, *tables)
-        dense = densify(torch, vals[:nnz], idx[:nnz], head, W_DIM)
+        del vals, idx, indptr, args
+        self.phase_kernels_cws_dense(gen, dense_rows, min(edge_rows, 64))
+        self.phase_kernels_cws_edges(edge_rows)
+
+    def phase_kernels_cws_edges(self, edge_rows: int = 257) -> None:
+        """Kernels 6 and 7 against their plain versions and each other on
+        :func:`cws_edge_case`'s rows, then on rows whose entry order
+        matters (:meth:`phase_kernels_cws_order`)."""
+        torch = self.torch
+        kc = self.kmod("cws_sparse")
+        dev = self.device
+        for d, s in ((10001, 100), (333, 6), (W_DIM, W_SAMPLES)):
+            tabs, w = cws_edge_case(torch, d, s, dev, edge_rows)
+            vals, idx, indptr = to_csr(torch, w)
+            got = kc.cws_dense(w, *tabs)
+            case = "edges D %d S %d" % (d, s)
+            self.compare("cws_dense", case, got, kc.cws_dense_plain(w, *tabs))
+            csr = kc.cws_sparse(vals, idx, indptr, *tabs)
+            self.compare("cws_sparse", case, csr, kc.cws_sparse_plain(vals, idx, indptr, *tabs))
+            check(torch.equal(got, csr), "%s: kernel 6 and kernel 7 differ" % case)
+            check(bool((got[3, :, 1] < 0).all()) and bool((got[0] == 0).all())
+                  and bool((got[2, :, 0] == 0).all()),
+                  "%s: negative t, the empty row or the forced tie are wrong" % case)
+        self.phase_kernels_cws_order(edge_rows)
+
+    def phase_kernels_cws_dense(self, gen, dense_rows: int = W_DENSE_ROWS,
+                                edge_rows: int = 64,
+                                edge_ds=((W_DIM, W_SAMPLES), (10001, 100), (333, 6), (1, 1),
+                                         (W_DIM, 129), (10001, 256), (W_DIM, 6),
+                                         (333, 1030))) -> None:
+        """Kernel 6 against its plain version and kernel 7: the first
+        ``dense_rows`` rows of the weighted batch densified, in the
+        generator's chunks (the first chunk timed), then at each (D, S) of
+        ``edge_ds`` the rows of :func:`cws_dense_case` (an empty row, one
+        active dim at the end, fully dense rows, ties across chunks and
+        across warps' segments, tiny, huge and negative weights)."""
+        torch = self.torch
+        kc = self.kmod("cws_dense")
+        dev = self.device
+        tables = gen.params_t()
+        vals, idx, indptr = make_weighted_rows(torch, dense_rows, W_DIM, dev, seed=17)
+        sparse_kt = kc.cws_sparse(vals, idx, indptr, *tables)
+        dense = densify(torch, vals, idx, indptr, W_DIM)
         del vals, idx, indptr
         chunk = min(dense_rows, gen._CHUNK_ELEMS // W_DIM)  # the generator's
         for r0 in range(0, dense_rows, chunk):
@@ -656,29 +723,29 @@ class Smoke:
         rec["plain_ms"] = self.time_ms(lambda: kc.cws_dense_plain(w, *tables), iters=1,
                                        warmup=0)
         active = int((w > 0).sum())
-        self.bound("cws_dense", 4 * w.numel() + tab_bytes + 8 * chunk * W_SAMPLES,
+        self.bound("cws_dense", 4 * w.numel() + 12 * W_DIM * W_SAMPLES + 8 * chunk * W_SAMPLES,
                    f32_ops=8.0 * active * W_SAMPLES + active)
         del dense, w, sparse_kt
-        for d, s in ((10001, 100), (333, 6), (W_DIM, W_SAMPLES)):
-            tabs, w = cws_edge_case(torch, d, s, dev, edge_rows)
-            vals, idx, indptr = to_csr(torch, w)
+        for d, s in edge_ds:
+            tabs, w, ties = cws_dense_case(torch, d, s, dev, edge_rows)
             got = kc.cws_dense(w, *tabs)
-            case = "edges D %d S %d" % (d, s)
-            self.compare("cws_dense", case, got, kc.cws_dense_plain(w, *tabs))
-            csr = kc.cws_sparse(vals, idx, indptr, *tabs)
-            self.compare("cws_sparse", case, csr, kc.cws_sparse_plain(vals, idx, indptr, *tabs))
-            check(torch.equal(got, csr), "%s: kernel 6 and kernel 7 differ" % case)
-            check(bool((got[3, :, 1] < 0).all()) and bool((got[0] == 0).all())
-                  and bool((got[2, :, 0] == 0).all()),
-                  "%s: negative t, the empty row or the forced tie are wrong" % case)
-        self.phase_kernels_cws_order(edge_rows)
+            case = "dense D %d S %d" % (d, s)
+            want = kc.cws_dense_plain(w, *tabs)
+            for row, dim in ties:
+                check(bool((want[row, :, 0] == dim).all()),
+                      "%s: row %d's tie does not go to dim %d" % (case, row, dim))
+            self.compare("cws_dense", case, got, want)
+            vals, idx, indptr = to_csr(torch, w)
+            check(torch.equal(got, kc.cws_sparse(vals, idx, indptr, *tabs)),
+                  "%s: kernel 6 and kernel 7 differ" % case)
 
     def phase_kernels_cws_order(self, n_rows: int = 257) -> None:
         """Kernel 7 against its plain version on rows whose entry order
         matters (:func:`cws_order_case`): long rows, a tie between distant
         dims, falling dims (the first minimum in entry order wins), inactive
         entries anywhere, an empty row, at S 1, 6, 100 and 128, in the flat
-        CSR and the padded ``cws_many_sparse`` form."""
+        CSR and the padded ``cws_many_sparse`` form; and kernel 6 on the rows
+        densified (the tied dims land in different warps' segments)."""
         torch = self.torch
         kc = self.kmod("cws_sparse")
         from datasketch_tpu_torch.ops import cws_ops
@@ -692,6 +759,9 @@ class Smoke:
                       "D %d S %d: row %d's tie does not go to dim %d" % (d, s, row, dim))
             self.compare("cws_sparse", "entry order D %d S %d" % (d, s),
                          kc.cws_sparse(vals, idx, indptr, *tabs), want)
+            w = densify(torch, vals, idx, indptr, d)  # ties across warps' segments
+            self.compare("cws_dense", "entry order D %d S %d densified" % (d, s),
+                         kc.cws_dense(w, *tabs), kc.cws_dense_plain(w, *tabs))
             # the padded form: each row right-padded with (idx 0, val 0)
             lengths = indptr[1:] - indptr[:-1]
             nz = int(lengths.max())
@@ -1562,6 +1632,22 @@ def to_csr(torch, w):
     return w[nz[:, 0], nz[:, 1]].contiguous(), nz[:, 1].to(torch.int32), indptr
 
 
+def rerank_edge_case(torch, n: int, nq: int, c: int, device, seed: int):
+    """int32[nq, c] candidate ids over an ``n``-row table: row 0 all -1;
+    row 1 one id in every slot; row 2 live ids at even slots, -1 at odd
+    ones; row 3 three ids repeated in turn; the rest random ids with a
+    random fifth of the columns -1, so a chunk of 32 slots holds no, some
+    or only -1 slots."""
+    rng = np.random.RandomState(seed)
+    cand = rng.randint(-1, n, size=(nq, c)).astype(np.int32)
+    cand[0] = -1
+    cand[1] = rng.randint(0, n)
+    cand[2, 1::2] = -1
+    cand[3] = np.resize(rng.randint(0, n, size=3), c)
+    cand[4:, rng.rand(c) < 0.2] = -1
+    return torch.from_numpy(cand).to(device)
+
+
 def cws_edge_case(torch, d: int, s: int, device, n_rows: int = 257):
     """Tables (transposed [d, s], drawn as the generator draws them) whose
     dims 1, 2 copy dim 0 and dim d-2 copies d-3, and rows: 0 empty, 1 one
@@ -1588,6 +1674,46 @@ def cws_edge_case(torch, d: int, s: int, device, n_rows: int = 257):
     w[6, d - 3: d - 1] = 1.5
     tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
     return tabs, torch.from_numpy(w).to(device)
+
+
+def cws_dense_case(torch, d: int, s: int, device, n_rows: int = 64):
+    """Tables (transposed [d, s], drawn as the generator draws them) and
+    dense rows f32[n_rows, d] for kernel 6's layout: row 0 empty; 1 only
+    the last dim active; 2 fully dense, weights log-uniform over 1e-30 ..
+    1e30; 3 fully dense at 1e-30 but for dims a = 100 and b = d - 2 at
+    1e30, b's parameters a copy of a's (a tie across 1,024-dim chunks and
+    list flushes: a wins); 4 only dims 64 and 192, 192's parameters a copy
+    of 64's, at one weight (a tie across warps' segments: 64 wins); 5 only
+    tiny weights (negative t); 6 only huge ones; 7 negative entries only;
+    the rest ~2 % dense, weights log-uniform over 1e-30 .. 1e30. Also
+    returns the forced ties as (row, winning dim) pairs (none where d is
+    too small for them)."""
+    rng = np.random.RandomState(d * 3 + s)
+    rs = rng.gamma(2, 1, (d, s)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (d, s))).astype(np.float32)
+    betas = rng.uniform(0, 1, (d, s)).astype(np.float32)
+    w = np.where(rng.rand(n_rows, d) < 0.02, 10.0 ** rng.uniform(-30, 30, (n_rows, d)), 0.0)
+    w = w.astype(np.float32)
+    w[:8] = 0.0
+    w[1, d - 1] = 0.5
+    w[2] = 10.0 ** rng.uniform(-30, 30, d)
+    w[5, :: max(1, d // 40)] = 1e-30
+    w[6, :: max(1, d // 40)] = 1e30
+    w[7, ::3] = -1.0
+    ties = []
+    for row, (a, b) in ((3, (100, d - 2)), (4, (64, 192))):
+        if not a < b < d:
+            continue
+        for t in (rs, ln_cs, betas):
+            t[b] = t[a]
+        ties.append((row, a))
+    w[3] = 1e-30
+    if d > 102:
+        w[3, [100, d - 2]] = 1e30
+    if d > 192:
+        w[4, [64, 192]] = 0.75
+    tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
+    return tabs, torch.from_numpy(w).to(device), ties
 
 
 def cws_order_case(torch, d: int, s: int, device, n_rows: int):

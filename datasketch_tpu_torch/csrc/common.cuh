@@ -151,6 +151,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Close this thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are still
+// in flight (the older ones have landed and are visible to this thread).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Issue the copy of db rows [row0, row0 + kRB) into `dst` (kRB rows of
 // `stride` ints), columns [0, p) only, and their sizes into `x_dst` (sizes
 // mode). Rows >= r_end are zero-filled: they fail the validity test, so

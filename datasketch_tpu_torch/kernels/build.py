@@ -66,7 +66,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""  # nvcc's output (ptxas register/spill report) of the last build
+build_log = ""  # nvcc's output (ptxas register/spill report) of the library's build
 
 
 def _sources():
@@ -97,6 +97,9 @@ def _build() -> str:
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, "libds_kernels_%s.so" % digest.hexdigest()[:16])
     if os.path.exists(out):
+        if os.path.exists(out + ".log"):
+            with open(out + ".log") as fh:
+                build_log = fh.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp.%d" % (out, os.getpid())
@@ -105,6 +108,8 @@ def _build() -> str:
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode, build_log))
+    with open(out + ".log", "w") as fh:
+        fh.write(build_log)
     os.replace(tmp, out)
     return out
 

@@ -190,6 +190,40 @@ def test_rerank_kernel_matches_plain(dev):
     assert torch.equal(got, rerank.rerank_scores_plain(db, q, cand))
 
 
+@pytest.mark.parametrize("p", [66, 100, 128, 512, 600])
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 333, 3200])
+def test_rerank_kernel_edge_lists(dev, p, c):
+    """Kernel 3 against its plain twin on ``chip_smoke.rerank_edge_case``'s
+    lists (a query of -1 slots only, one id in every slot, -1 between live
+    slots, three ids in turn, random ids with -1 columns) at C around the
+    32-slot chunk and at P that do and do not move as 16-byte words."""
+    import chip_smoke
+
+    db = _sigs(dev, 5003, p, 20 + p, values=4)
+    q = _sigs(dev, 38, p, 21 + p, values=4)[1:]
+    cand = chip_smoke.rerank_edge_case(torch, 5003, 37, c, dev, seed=p + c)
+    got = _launched(rerank, lambda: rerank.rerank_scores(db, q, cand))
+    assert torch.equal(got, rerank.rerank_scores_plain(db, q, cand))
+    assert (got[0] == 0).all() and (got[1] == got[1, 0]).all()
+
+
+@pytest.mark.parametrize("p", [100, 128])
+def test_rerank_kernel_unaligned_table(dev, p):
+    """A table or queries 4 bytes past a 16-byte boundary take the kernel's
+    word-by-word form and give the same scores."""
+    db = _sigs(dev, 3000, p, 30, values=4)
+    q = _sigs(dev, 50, p, 31, values=4)
+    cand = torch.randint(-1, 3000, (50, 700), generator=_gen(dev, 32), device=dev,
+                         dtype=torch.int32)
+    want = rerank.rerank_scores_plain(db, q, cand)
+    for t in (db, q):
+        buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        moved = buf[1:].view(t.shape).copy_(t)
+        args = (moved, q, cand) if t is db else (db, moved, cand)
+        got = _launched(rerank, lambda: rerank.rerank_scores(*args))
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("p", [66, 100, 128])
 @pytest.mark.parametrize("nq", [1, 33, 1000])
 def test_score_kernel_edge_shapes(dev, p, nq):
@@ -416,6 +450,43 @@ def test_cws_sparse_entry_order(dev, d, s):
     assert torch.equal(padded, want)
     dense = cws.cws_dense(chip_smoke.densify(torch, vals, idx, indptr, d), *tabs)
     assert torch.equal(dense[[0, 1, 2, 6]], want[[0, 1, 2, 6]])
+
+
+@pytest.mark.parametrize("d,s", [(10000, 128), (10001, 100), (333, 6), (1, 1), (10000, 129),
+                                 (10001, 256), (10000, 6), (333, 1030)])
+def test_cws_dense_kernel_cases(dev, d, s):
+    """Kernel 6 against its plain twin and kernel 7 on
+    ``chip_smoke.cws_dense_case``'s rows: an empty row, one active dim at
+    the end, fully dense rows, ties across 1,024-dim chunks and list
+    flushes and across warps' segments, tiny, huge and negative weights; at
+    S from 1 to past 1,024 (a second block of sample groups), D odd and
+    even."""
+    import chip_smoke
+
+    tabs, w, ties = chip_smoke.cws_dense_case(torch, d, s, dev, 64)
+    got = _launched(cws, lambda: cws.cws_dense(w, *tabs))
+    assert torch.equal(got, cws.cws_dense_plain(w, *tabs))
+    for row, dim in ties:
+        assert (got[row, :, 0] == dim).all()
+    vals, idx, indptr = chip_smoke.to_csr(torch, w)
+    assert torch.equal(got, cws.cws_sparse(vals, idx, indptr, *tabs))
+
+
+@pytest.mark.parametrize("d,s", [(10000, 1), (10001, 100), (10000, 128), (333, 6)])
+def test_cws_dense_kernel_on_densified_order_rows(dev, d, s):
+    """``chip_smoke.cws_order_case``'s rows densified through kernel 6: the
+    tie of dims 64 and 192 (row 2) lies in two warps' segments and goes to
+    64; and weights 4 bytes past a 16-byte boundary give the same."""
+    import chip_smoke
+
+    tabs, (vals, idx, indptr), _ = chip_smoke.cws_order_case(torch, d, s, dev, 300)
+    w = chip_smoke.densify(torch, vals, idx, indptr, d)
+    got = _launched(cws, lambda: cws.cws_dense(w, *tabs))
+    assert torch.equal(got, cws.cws_dense_plain(w, *tabs))
+    assert (got[2, :, 0] == 64).all()
+    buf = torch.empty(w.numel() + 1, dtype=torch.float32, device=dev)
+    moved = buf[1:].view(w.shape).copy_(w)
+    assert torch.equal(_launched(cws, lambda: cws.cws_dense(moved, *tabs)), got)
 
 
 def test_kt_slots_on_the_card_match_host(dev):

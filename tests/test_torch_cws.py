@@ -87,6 +87,42 @@ def test_cws_many_matches_jax_and_pallas(b, s, d):
     assert (got[3, :, 1] < 0).all()
 
 
+@pytest.mark.parametrize("b,s,d", [(8, 129, 300), (8, 256, 700), (7, 128, 1000)])
+def test_cws_dense_plain_matches_jax_and_pallas_on_dense_rows(b, s, d):
+    """Kernel 6's plain twin against the JAX package's ``cws_many`` and the
+    Pallas kernel in interpret mode past one 128-sample block and on fully
+    dense rows (rows 5 and 6: every dim active, row 6 at one weight so
+    that dims 0-2 tie)."""
+    rs, ln_cs, betas = _tables(s, d, seed=d + s + 1)
+    w = _weights(b, d, seed=b + s)
+    w[5] = np.abs(np.random.RandomState(s).randn(d)) + 1e-3
+    w[6] = 0.5
+    got = cws_ops.cws_many(_t(w), _t(rs), _t(ln_cs), _t(betas)).numpy()
+    assert_kt_equal(got, jax_cws.cws_many(w, rs, ln_cs, betas), w, rs, betas)
+    assert_kt_equal(got, pk.cws_many_pallas(w, rs, ln_cs, betas, interpret=True),
+                    w, rs, betas)
+    assert (got[6, :, 0] != 1).all() and (got[6, :, 0] != 2).all()  # ties to dim 0
+
+
+@pytest.mark.parametrize("d,s", [(1, 1), (333, 6), (400, 129)])
+def test_cws_dense_case_matches_jax(d, s):
+    """Kernel 6's plain twin on ``chip_smoke.cws_dense_case``'s rows (one
+    active dim at the end, fully dense rows, ties across chunks and across
+    warps' segments, tiny, huge and negative weights) against the JAX
+    package's ``cws_many``; the forced ties go to the lower dim."""
+    import chip_smoke
+
+    tabs, w, ties = chip_smoke.cws_dense_case(torch, d, s, "cpu", 16)
+    got = cws.cws_dense(w, *tabs).numpy()
+    for row, dim in ties:
+        assert (got[row, :, 0] == dim).all()
+    assert (got[0] == 0).all() and (got[1, :, 0] == d - 1).all()
+    rs, ln_cs, betas = (np.ascontiguousarray(t.numpy().T) for t in tabs)
+    w = w.numpy()
+    assert_kt_equal(got[1:], np.asarray(jax_cws.cws_many(w, rs, ln_cs, betas))[1:],
+                    w[1:], rs, betas)
+
+
 def _padded(w):
     """Right-padded CSR form of dense rows: vals/idx [B, NZ]."""
     nnz = (w > 0).sum(1)

@@ -105,6 +105,24 @@ def test_rerank_jaccard_matches_jax_and_pallas_branch(corpus):
         jax_lsh.rerank_jaccard.clear_cache()
 
 
+@pytest.mark.parametrize("p", [66, 100, 128])
+@pytest.mark.parametrize("c", [1, 33, 333])
+def test_rerank_plain_matches_jax_on_edge_lists(p, c):
+    """Kernel 3's plain twin against the JAX package's ``rerank_jaccard`` on
+    ``chip_smoke.rerank_edge_case``'s lists (a query of -1 slots only, one
+    id in every slot, -1 between live slots, three ids in turn) over a
+    tie-heavy table, at widths that are and are not multiples of 4."""
+    import chip_smoke
+
+    rng = np.random.RandomState(p * 7 + c)
+    db = rng.randint(0, 4, size=(500, p)).astype(np.uint32)
+    q = rng.randint(0, 4, size=(9, p)).astype(np.uint32)
+    cand = chip_smoke.rerank_edge_case(torch, 500, 9, c, "cpu", seed=p + c)
+    got = lsh_ops.rerank_jaccard(_t(db), _t(q), cand)
+    assert (got[0] == 0).all()
+    _eq(got, jax_lsh.rerank_jaccard(db, q, cand.numpy()))
+
+
 def _band_scores(db, q, cap=16):
     """Candidates and rerank scores of the band path, from the JAX side."""
     jsf, jsi = jax_lsh.build_tables(jax_lsh.band_fingerprints(db, B, R))

@@ -29,7 +29,8 @@ def test_smoke_kernel_phase_on_cpu():
     smoke.phase_kernels(n_docs=300, n_ragged=40, scan=dict(n=3000, nq=40, n2=1500, nq2=20),
                         scan_edges=dict(edge_n=300, edge_q=(1, 33), one_split=(200, 33)),
                         score_edges=dict(edge_t=(1, 63, 64, 65, 130), edge_q=(1, 33),
-                                         wide=(70, 128)))
+                                         wide=(70, 128)),
+                        rerank_edges=dict(edge_c=(1, 33, 333), edge_n=500, edge_q=9))
     for name in ("minhash_sign", "topk_scan", "containment_scan", "rerank", "score_matrix"):
         assert smoke.record[name]["max_abs_err"] == 0.0
         assert smoke.record[name]["bound_by"] in ("bytes", "operations")

@@ -1,34 +1,46 @@
 #!/usr/bin/env python3
 """One kernel of one or more checkouts, timed in turns on one card: kernel 2
-(the fused exact-scan top-k), kernel 4 (the score matrix) or kernel 7 (CWS
-over CSR rows).
+(the fused exact-scan top-k), kernel 3 (the band-candidate rerank), kernel 4
+(the score matrix), kernel 6 (CWS over dense rows) or kernel 7 (CWS over CSR
+rows).
 
 Usage, from the root of a checkout, on a machine with one CUDA card:
 
-    python3 tools/scan_steps.py [--kernel scan|score|cws_sparse] [--sass]
-                                [--reps N] [--p P] [--out DIR] [ROOT ...]
+    python3 tools/scan_steps.py [--kernel scan|rerank|score|cws_dense|cws_sparse]
+                                [--sass] [--reps N] [--p P] [--out DIR] [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this
 one); give the same one twice to time it twice (for example ``OLD . .
 OLD``). For each ROOT in the order given, one process imports
 ``datasketch_tpu_torch`` from that ROOT, builds its kernels (``nvcc``) and
-prints ptxas' registers, shared memory and spills for the kernel. The
+prints ptxas' registers, shared memory and spills for the kernel (kept
+beside the build, so every process of a ROOT prints them). The
 first time a ROOT comes up, it also holds the kernel exactly equal to its
 plain version on every case of ``chip_smoke.py``'s phase for it
-(``Smoke.phase_kernels_scan``, ``phase_kernels_score``,
-``phase_kernels_cws``) and fails if one differs. Every process then
-times, with CUDA events (mean of N calls after a warm one; ``--reps 0``:
-no timing), the timed shapes: ``scan`` Q 1,024 x N 1,048,576 x P (128
-unless ``--p``) at k 10, and the sizes mode at k 16 and k 128 (cutoff
-0.8); ``score`` Q 1,024 x T 8,192 x P; ``cws_sparse`` the weighted path's
-1,048,576 CSR rows at D 10,000, S 128. With ``--sass`` it also prints the
-opcode counts of the kernel's inner loop (``cuobjdump -sass``): for
-``scan`` and ``score`` the innermost loop that compares staged rows in the
-scan, score, rerank and b-bit kernels; for ``cws_sparse`` the innermost
-loop with the most ``MUFU`` (the fold's division), and its instructions
-per ``MUFU``: warp instructions per 32 (entry, sample) folds. With
-``--out DIR`` each process's full output, and with ``--sass`` each
-build's whole SASS listing, are written under DIR.
+(``Smoke.phase_kernels_scan``, ``phase_kernels_rerank``,
+``phase_kernels_score``, ``phase_kernels_cws_dense`` and
+``phase_kernels_cws_edges``, ``phase_kernels_cws``; ``chip_smoke.py`` of
+this checkout, whichever ROOT is under test) and fails if one differs.
+Every process then times, with CUDA events (mean of N calls after a warm
+one; ``--reps 0``: no timing), the timed shapes: ``scan`` Q 1,024 x N
+1,048,576 x P (128 unless ``--p``) at k 10, and the sizes mode at k 16
+and k 128 (cutoff 0.8); ``rerank`` the smoke's Q 1,024 x C 3,200 list
+over that table and the band-candidate list of the lsh-1m serving path
+(1,024 queries of ``top_k(method="bands")`` over the smoke's 1,048,576-row
+index, banding 25 x 5, bucket cap 128; its live share is printed);
+``score`` Q 1,024 x T 8,192 x P; ``cws_dense`` the weighted path's first
+6,710 rows densified (D 10,000, S 128: the smoke's timed chunk);
+``cws_sparse`` the weighted path's 1,048,576 CSR rows at D 10,000, S 128.
+With ``--sass`` it also prints the opcode counts of the kernel's inner
+loop (``cuobjdump -sass``): for ``scan`` and ``score`` the innermost loop
+that compares staged rows in the scan, score and b-bit kernels; for
+``rerank`` the innermost loop with the most global loads in each form of
+the kernel, and its instructions per load (at P 128: per live candidate
+row); for ``cws_dense`` and ``cws_sparse`` the innermost loop with the most
+``MUFU`` (the fold's division), and its instructions per ``MUFU``: warp
+instructions per 32 (entry, sample) folds. With ``--out DIR`` each
+process's full output, and with ``--sass`` each build's whole SASS
+listing, are written under DIR.
 
 Prints one JSON line per process and, first, the card's name and power
 limit. Exits non-zero if a build or a parity check failed.
@@ -46,8 +58,13 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel", "rerank_kernel")
-PTXAS_NAMES = {"scan": "topk_scan", "score": "score_kernel", "cws_sparse": "cws_sparse"}
+SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel")
+PTXAS_NAMES = {"scan": "topk_scan", "rerank": "rerank_kernel", "score": "score_kernel",
+               "cws_dense": "cws_dense", "cws_sparse": "cws_sparse"}
+# kernel -> (function names, the opcode that picks the loop, the per-unit key)
+SASS_LOOPS = {"rerank": (("rerank_kernel",), "LDG", "per_load"),
+              "cws_dense": (("cws_dense",), "MUFU", "per_mufu"),
+              "cws_sparse": (("cws_sparse",), "MUFU", "per_mufu")}
 
 
 def load_smoke():
@@ -66,6 +83,8 @@ def ptxas_lines(log: str, name: str) -> list:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             on = name in line
+            if on:
+                out.append(line.split("'")[1] if "'" in line else line.strip())
         elif on and ("registers" in line or "spill" in line or "smem" in line):
             out.append(line.strip())
     return out
@@ -158,17 +177,17 @@ def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
         with open(os.path.join(out_dir, "sass_%s.txt" % tag), "w") as fh:
             fh.write(proc.stdout)
     report = {}
-    cws = kernel == "cws_sparse"
+    names, key, per = SASS_LOOPS.get(kernel, (SASS_KERNELS, "LDS.128", None))
     for name, (body, labels) in functions(proc.stdout).items():
-        hit = next((k for k in (("cws_sparse",) if cws else SASS_KERNELS) if k in name), None)
+        hit = next((k for k in names if k in name), None)
         if hit is None:
             continue
-        loop = compare_loop(body, labels, "MUFU" if cws else "LDS.128")
+        loop = compare_loop(body, labels, key)
         hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
         entry = {"function": name[:100], "loop_instructions": len(loop),
                  "opcodes": dict(hist.most_common())}
-        if cws:
-            entry["per_mufu"] = len(loop) / max(1, hist["MUFU"])
+        if per:
+            entry[per] = len(loop) / max(1, hist[key])
         else:
             entry["register_compares"] = register_compares(loop)
         report.setdefault(hit, []).append(entry)
@@ -197,6 +216,69 @@ def score_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
     return {"score_matrix Q=1024 T=8192": lambda: k4.score_matrix(q, tile)}
 
 
+def rerank_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
+    data = smoke.scan_data(p=p)
+    if parity:
+        smoke.phase_kernels_rerank(data)
+    k3 = smoke.kmod("rerank")
+    db, q, cand = data["db"], data["q"], smoke.rerank_cand(data)
+    bands = band_candidates(smoke_mod, smoke)
+    return {"rerank Q=1024 C=3200": lambda: k3.rerank_scores(db, q, cand),
+            "rerank lsh-1m bands": lambda: k3.rerank_scores(*bands)}
+
+
+def band_candidates(smoke_mod, smoke):
+    """(table, queries, candidates) of the lsh-1m ``top_k(method="bands")``
+    step: the smoke's 1,048,576-row index and its 1,024 planted queries."""
+    import numpy as np
+    import torch
+
+    from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+    from datasketch_tpu_torch.ops import lsh_ops
+
+    corpus = smoke_mod.make_corpus(smoke_mod.SIG_DOCS, seed=42)
+    real = MinHash.bulk_signatures(corpus, num_perm=smoke_mod.NUM_PERM, seed=1,
+                                   out="device", device=smoke.device)
+    sigs, _, dst, _ = smoke_mod.synth_index(smoke_mod.N_INDEX,
+                                            real.cpu().numpy().view(np.uint32))
+    index = TorchMinHashLSH(threshold=0.5, num_perm=smoke_mod.NUM_PERM, bucket_cap=128,
+                            device=smoke.device)
+    index.index(range(smoke_mod.N_INDEX), sigs)
+    q = index._queries(sigs[dst[-smoke_mod.N_QUERIES:]])
+    cand, _ = lsh_ops._band_candidates(index._sorted_fp, index._sorted_ids, q, index.b,
+                                       index.r, index.bucket_cap, None)
+    live = cand[cand >= 0]
+    distinct = int(torch.unique(live).numel())
+    # as chip_smoke's bound for kernel 3: each distinct row and query read
+    # once, the ids read and the scores written; one compare a live slot
+    nbytes = 4 * (distinct + q.shape[0]) * q.shape[1] + 8 * cand.numel()
+    smoke.steps_info = {"band_candidates": {
+        "shape": list(cand.shape), "b": index.b, "r": index.r, "live": int(live.numel()),
+        "live_share": live.numel() / cand.numel(), "distinct_rows": distinct,
+        "bound_ms": 1e3 * max(nbytes / smoke_mod.PEAK_BYTES,
+                              live.numel() * q.shape[1] / smoke.int_rate)}}
+    return index._sigs, q, cand.contiguous()
+
+
+def cws_dense_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
+    import torch
+
+    from datasketch_tpu_torch import WeightedMinHashGenerator
+
+    gen = WeightedMinHashGenerator(smoke_mod.W_DIM, smoke_mod.W_SAMPLES, seed=1,
+                                   device=smoke.device)
+    if parity:
+        smoke.phase_kernels_cws_dense(gen)
+        smoke.phase_kernels_cws_edges()
+    kc = smoke.kmod("cws_dense")
+    rows = gen._CHUNK_ELEMS // smoke_mod.W_DIM
+    csr = smoke_mod.make_weighted_rows(torch, smoke_mod.W_DENSE_ROWS, smoke_mod.W_DIM,
+                                       smoke.device, seed=17)
+    w = smoke_mod.densify(torch, *csr, smoke_mod.W_DIM)[:rows]
+    tables = gen.params_t()
+    return {"cws_dense %d rows" % rows: lambda: kc.cws_dense(w, *tables)}
+
+
 def cws_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
     import torch
 
@@ -213,7 +295,8 @@ def cws_calls(smoke_mod, smoke, parity: bool, p: int) -> dict:
     return {"cws_sparse 1M rows": lambda: kc.cws_sparse(*args)}
 
 
-CALLS = {"scan": scan_calls, "score": score_calls, "cws_sparse": cws_calls}
+CALLS = {"scan": scan_calls, "rerank": rerank_calls, "score": score_calls,
+         "cws_dense": cws_dense_calls, "cws_sparse": cws_calls}
 
 
 def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str,
@@ -232,6 +315,7 @@ def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str
     calls = CALLS[kernel](smoke_mod, smoke, parity, p)
     if parity:
         out["parity"] = "exact"
+    out.update(getattr(smoke, "steps_info", {}))
     if reps > 0:
         out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
     if sass:
