@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving,
 LSH Ensemble containment serving, weighted MinHash (CWS) serving, b-bit
-MinHash serving, and the raw-text front ends.
+MinHash serving, the raw-text front ends, LSH Forest serving, the rest of
+the LSH facade and the per-object MinHash API.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -77,7 +78,26 @@ Phases (any failed check raises and the script exits non-zero):
     ``query_batch`` on texts with their last 100 bytes replaced (recall >=
     0.99 each), and ``index_tokens`` / ``top_k_tokens`` against a
     ``device="cpu"`` index, with kernels 1, 2 and 3's launches read around
-    it.
+    it;
+14. forest-1m: the index phase's 1,048,576 rows in a
+    ``TorchMinHashLSHForest`` (num_perm 128, l 8, cap 64), 1,024 planted
+    queries at k 10 by the prefix walk (rank 'forest', and rank 'jaccard'
+    with pool 512), the scan and 'auto' (scan recall >= 0.99), a k 256 scan
+    (kernel 4), with kernels 2, 3 and 4's launches read around it; then 64
+    queries against the forest ops run with the kernels' plain twins, a
+    65,536-row CUDA forest against a ``device="cpu"`` one, and save / load;
+15. forest-16k: ``bench.py::bench_forest``'s forest (cascade 256, pool 512,
+    rank 'jaccard') over sign-16k's docs sketched at num_perm 256, 256-query
+    batches by ``query_batch`` and ``query_stream(depth=4)`` against a
+    ``device="cpu"`` forest;
+16. facade-2: a cascade-256 ``TorchMinHashLSH`` over the same rows, built
+    by ``merge``, against a ``device="cpu"`` one: bands, scans, threshold,
+    removals and ``compact``, ``query_b``, a card checkpoint loaded on the
+    CPU, and the streams against the batch calls (the ensemble's
+    ``query_stream`` runs in phase 9);
+17. minhash-objects: ``MinHash.update_batch`` of 64 docs on the card
+    (kernel 1) against the host path, ``MinHash.bulk``, ``LeanMinHash``
+    bytes, ``union`` / ``merge`` / ``count``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -127,6 +147,13 @@ W_ENS_SETS = 8192
 W_SLOT_PAIRS = 1 << 20
 BBIT_ROWS = 1 << 24
 BBIT_CHUNK = 1 << 20
+FOREST_L = 8
+FOREST_CAP = 64
+FOREST_POOL = 512
+FOREST_BIG_K = 256  # the scan's k_pad is 256 > 128: kernel 4
+FOREST_PLAIN_QUERIES = 64  # answers held against the plain twins on the card
+FOREST16_PERM = 256
+FOREST16_BATCH = 256
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -205,6 +232,10 @@ ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
 WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
 BBIT_PATH = ("bbit_scores",)
 TEXT_PATH = ("minhash_sign", "topk_scan", "rerank")
+FOREST_PATH = ("topk_scan", "rerank", "score_matrix")
+FOREST16_PATH = ("topk_scan", "rerank")
+FACADE2_PATH = ("topk_scan", "rerank", "score_matrix")
+MINHASH_PATH = ("minhash_sign",)
 
 
 class SmokeFailure(RuntimeError):
@@ -1566,6 +1597,340 @@ class Smoke:
         log("[text-16k] index_tokens / top_k_tokens of %d token docs: the card answers as "
             "a device='cpu' index (scan, bands)" % len(docs))
 
+    # ------------------------------------------------------------ forest
+
+    def phase_forest(self, sigs: np.ndarray, src, dst, n_queries: int = N_QUERIES):
+        """forest-1m: the index phase's rows in a ``TorchMinHashLSHForest``
+        (num_perm 128, l 8, cap 64), 1,024 planted queries at k 10 by the
+        walk (rank 'forest', and rank 'jaccard' with pool 512), the scan
+        and 'auto' (rank 'jaccard': the scan at this size), then a k 256
+        scan (kernel 4). Scan recall of the planted source >= 0.99; the
+        walk's recall is written down."""
+        from datasketch_tpu_torch import TorchMinHashLSHForest
+
+        n = sigs.shape[0]
+        forest = TorchMinHashLSHForest(num_perm=NUM_PERM, l=FOREST_L, cap=FOREST_CAP,
+                                       device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        forest.index(range(n), sigs)
+        self.sync()
+        self.forest_build_s = time.perf_counter() - t0
+        status = forest.status()
+        check(status["n_indexed"] == n, "forest holds %d rows" % status["n_indexed"])
+        log("[forest-1m] %d rows indexed in %.3f s (upload, fingerprints, %d stable sorts "
+            "per tree); status %s" % (n, self.forest_build_s, forest.k, json.dumps(status)))
+        queries = sigs[dst[-n_queries:]]
+        expect = src[-n_queries:]
+        routes = {
+            "walk forest": dict(method="forest", rank="forest"),
+            "walk jaccard pool 512": dict(method="forest", rank="jaccard"),
+            "scan": dict(method="scan", rank="jaccard"),
+            "auto jaccard": dict(method="auto", rank="jaccard"),
+        }
+        self.forest_qps, answers = {}, {}
+        for label, kw in routes.items():
+            forest.pool = FOREST_POOL if label.startswith("walk jaccard") else 0
+            qps, rows = self.timed_qps(
+                lambda kw=kw: forest.query_batch(queries, TOP_K, return_scores=True, **kw),
+                n_queries)
+            rec = float(np.mean([int(s) in [kk for kk, _ in row]
+                                 for s, row in zip(expect, rows)]))
+            self.forest_qps[label] = (qps, rec, forest.last_truncated)
+            answers[label] = rows
+            log("[forest-1m] %-21s %10.1f q/s recall %.4f truncated %d"
+                % (label, qps, rec, forest.last_truncated))
+        forest.pool = 0
+        check(self.forest_qps["scan"][1] >= 0.99,
+              "forest scan recall %.4f < 0.99" % self.forest_qps["scan"][1])
+        check(answers["auto jaccard"] == answers["scan"], "forest auto did not answer as the scan")
+        check(all(len(r) == TOP_K for r in answers["scan"]), "forest scan: short rows")
+        qps, rows = self.timed_qps(
+            lambda: forest.query_batch(queries, FOREST_BIG_K, return_scores=True,
+                                       method="scan", rank="jaccard"), n_queries)
+        self.forest_qps["scan k=%d" % FOREST_BIG_K] = (qps, None, 0)
+        check(all(len(r) == FOREST_BIG_K for r in rows), "forest k=%d scan: short rows"
+              % FOREST_BIG_K)
+        check(all(r[:TOP_K] == s for r, s in zip(rows, answers["scan"])),
+              "forest k=%d scan does not extend the k=%d answer" % (FOREST_BIG_K, TOP_K))
+        log("[forest-1m] scan k=%d %10.1f q/s (kernel 4)" % (FOREST_BIG_K, qps))
+        return forest, queries
+
+    def phase_forest_checks(self, forest, queries: np.ndarray, sigs: np.ndarray,
+                            n_plain: int = FOREST_PLAIN_QUERIES, parity_rows: int = PARITY_ROWS,
+                            parity_queries: int = PARITY_QUERIES) -> None:
+        """The forest ops on ``n_plain`` queries with the kernels' plain twins
+        on the same CUDA tensors (walk at both ranks, the scan at k 16 and
+        256), a CUDA forest of ``parity_rows`` rows against a
+        ``device="cpu"`` one (every route: answers, scores,
+        ``last_truncated``), and save / load of it onto both devices."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchMinHashLSHForest
+        from datasketch_tpu_torch.kernels.lsh_scan import topk_scan_plain
+        from datasketch_tpu_torch.kernels.rerank import rerank_scores_plain
+        from datasketch_tpu_torch.ops import forest_ops, lsh_ops
+
+        q = torch.from_numpy(queries[:n_plain].view(np.int32)).to(self.device)
+        db, n = forest._sigs, forest._sigs.shape[0]
+        for rank, pool in (("forest", 0), ("jaccard", FOREST_POOL)):
+            args = (forest._sorted_fps, forest._sorted_ids, db, q, forest.l, forest.k,
+                    forest.cap, 16)
+            got = forest_ops.forest_query_fused(*args, pool=pool, rank=rank)
+            want = forest_ops.forest_query_fused(*args, pool=pool, rank=rank,
+                                                 rerank=rerank_scores_plain)
+            self.compare("rerank", "forest walk %s, %d queries" % (rank, n_plain), got, want)
+        for k, name in ((16, "topk_scan"), (FOREST_BIG_K, "score_matrix")):
+            self.compare(name, "forest scan k=%d, %d queries" % (k, n_plain),
+                         lsh_ops.topk_scan(db, q, k),
+                         topk_scan_plain(db, q, k, n, None, 0.0)[:2])
+        log("[forest-1m] %d queries: the walk (both ranks) and the scans equal the ops run "
+            "with the kernels' plain twins on the same CUDA tensors" % n_plain)
+        sub = sigs[:parity_rows]
+        rng = np.random.RandomState(23)
+        rows = rng.choice(parity_rows, parity_queries, replace=False)
+        keep = rng.rand(parity_queries, NUM_PERM) < 0.7
+        noise = rng.randint(0, 1 << 32, size=keep.shape, dtype=np.uint64).astype(np.uint32)
+        pq = np.where(keep, sub[rows], noise)
+        pair = [TorchMinHashLSHForest(num_perm=NUM_PERM, l=FOREST_L, cap=FOREST_CAP, device=d)
+                for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index(range(parity_rows), sub)
+
+        def same(label, call, ixs):
+            got = [call(ix) for ix in ixs]
+            check(got[0] == got[1], "forest parity: %s differs" % label)
+            check(ixs[0].last_truncated == ixs[1].last_truncated,
+                  "forest parity: %s last_truncated differs" % label)
+
+        calls = {
+            "walk forest": lambda ix: ix.query_batch(pq, TOP_K, True, method="forest"),
+            "walk jaccard": lambda ix: ix.query_batch(pq, TOP_K, True, rank="jaccard",
+                                                      method="forest"),
+            "scan": lambda ix: ix.query_batch(pq, TOP_K, True, rank="jaccard", method="scan"),
+            "auto jaccard, 100 queries": lambda ix: ix.query_batch(pq[:100], TOP_K, True,
+                                                                   rank="jaccard"),
+        }
+        for label, call in calls.items():
+            same(label, call, pair)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "forest")
+            pair[0].save(path)
+            loaded = [TorchMinHashLSHForest.load(path, device=d) for d in (self.device, "cpu")]
+        for label in ("walk forest", "scan"):
+            same("loaded %s" % label, calls[label], [pair[0], loaded[1]])
+            same("loaded on the card, %s" % label, calls[label], [loaded[0], pair[1]])
+        log("[forest-1m] %d rows x %d queries: the CUDA forest and a device='cpu' one agree "
+            "(ids, scores, last_truncated; walk at both ranks, scan, auto); saved on the card, "
+            "loaded on the card and on the CPU, they answer the same" % (parity_rows,
+                                                                           parity_queries))
+
+    def forest_corpus(self, n_docs: int = SIG_DOCS, n_queries: int = N_QUERIES):
+        """forest-16k's data: sign-16k's docs sketched at num_perm 256
+        (``bench.py::bench_forest``'s cascade width) and ``n_queries``
+        near-variants of them (a quarter of each doc's tokens replaced)."""
+        from datasketch_tpu_torch import MinHash
+
+        docs = make_corpus(n_docs, seed=42)
+        rng = np.random.RandomState(29)
+        qsrc = rng.choice(n_docs, n_queries, replace=False)
+        q_docs = []
+        for i in qsrc:
+            doc = list(docs[i])
+            for j in rng.choice(len(doc), len(doc) // 4, replace=False):
+                doc[j] = bytes(rng.randint(0, 256, size=10, dtype=np.uint8))
+            q_docs.append(doc)
+        kw = dict(num_perm=FOREST16_PERM, out="device", device=self.device)
+        return (MinHash.bulk_signatures(docs, **kw), MinHash.bulk_signatures(q_docs, **kw),
+                qsrc)
+
+    def phase_forest_16k(self, sigs, q_sigs, qsrc, batch: int = FOREST16_BATCH,
+                         cpu_queries: int = FOREST16_BATCH) -> None:
+        """forest-16k: ``bench_forest``'s forest (num_perm 128, l 8, cascade
+        256, pool 512, rank 'jaccard') over the 16,384 docs; ``batch``-query
+        batches by ``query_batch`` ('auto', here the scan, and the walk) and
+        ``query_stream(depth=4)``, recall of the source doc, and the first
+        ``cpu_queries`` answers against a ``device="cpu"`` forest."""
+        from datasketch_tpu_torch import TorchMinHashLSHForest
+
+        kw = dict(num_perm=NUM_PERM, l=FOREST_L, rank="jaccard", cascade_perm=FOREST16_PERM,
+                  pool=FOREST_POOL)
+        forest = TorchMinHashLSHForest(device=self.device, **kw)
+        self.sync()
+        t0 = time.perf_counter()
+        forest.index(range(sigs.shape[0]), sigs)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        nq = q_sigs.shape[0]
+        batches = [q_sigs[i: i + batch] for i in range(0, nq, batch)]
+        self.forest16 = {"build_s": build_s}
+        for method in ("auto", "forest"):
+            qps, rows = self.timed_qps(
+                lambda m=method: forest.query_batch(batches[0], TOP_K, method=m), len(batches[0]))
+            stream = list(forest.query_stream(batches, TOP_K, depth=4, method=method))
+            check(stream[0] == rows, "forest-16k %s: the stream's first batch differs" % method)
+            flat = [row for b in stream for row in b]
+            check(len(flat) == nq, "forest-16k %s: the stream lost queries" % method)
+            sqps, _ = self.timed_qps(
+                lambda m=method: list(forest.query_stream(batches, TOP_K, depth=4, method=m)),
+                nq, reps=2)
+            rec = float(np.mean([int(s) in row for s, row in zip(qsrc, flat)]))
+            self.forest16[method] = (qps, sqps, rec)
+            log("[forest-16k] %-6s query_batch of %d: %10.1f q/s; query_stream depth 4: "
+                "%10.1f q/s; recall %.4f" % (method, len(batches[0]), qps, sqps, rec))
+            check(rec >= 0.9, "forest-16k %s recall %.4f < 0.9" % (method, rec))
+        cpu = TorchMinHashLSHForest(device="cpu", **kw)
+        cpu.index(range(sigs.shape[0]), sigs.cpu())
+        cq = q_sigs[:cpu_queries]
+        for method in ("auto", "forest"):
+            got = forest.query_batch(cq, TOP_K, True, method=method)
+            check(got == cpu.query_batch(cq.cpu(), TOP_K, True, method=method),
+                  "forest-16k %s: the card differs from the CPU forest" % method)
+            check(forest.last_truncated == cpu.last_truncated,
+                  "forest-16k %s: last_truncated differs" % method)
+        log("[forest-16k] %d docs indexed in %.3f s; %d queries equal a device='cpu' forest "
+            "(auto, walk)" % (sigs.shape[0], build_s, cq.shape[0]))
+
+    def phase_facade2(self, sigs, q_sigs, n_queries: int = FOREST16_BATCH,
+                      n_remove: int = 500) -> None:
+        """facade-2: a cascade-256 ``TorchMinHashLSH`` (num_perm 128) over
+        forest-16k's rows, built in two halves and merged, beside a
+        ``device="cpu"`` one built the same way: bands, scan (k 10 and
+        200) and threshold answers equal; then removals, ``compact``,
+        ``query_b`` at every band count, ``save`` on the card and ``load``
+        on the CPU, and the streams against the batch calls."""
+        from datasketch_tpu_torch import TorchMinHashLSH
+
+        host = sigs.cpu().numpy().view(np.uint32)
+        q = q_sigs[:n_queries].cpu().numpy().view(np.uint32)
+        n, half = host.shape[0], host.shape[0] // 2
+        pair = []
+        for dev in (self.device, "cpu"):
+            ix, other = (TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM,
+                                         cascade_perm=FOREST16_PERM, device=dev)
+                         for _ in range(2))
+            ix.index(range(half), host[:half])
+            other.index(range(half, n), host[half:])
+            ix.merge(other, check_overlap=True)
+            pair.append(ix)
+        card = pair[0]
+
+        def same(label, call, ixs=pair):
+            got = [call(ix) for ix in ixs]
+            check(got[0] == got[1], "facade-2: %s differs" % label)
+            check(ixs[0].last_truncated == ixs[1].last_truncated,
+                  "facade-2: %s last_truncated differs" % label)
+
+        calls = {
+            "top_k bands": lambda ix: ix.top_k(q, TOP_K, method="bands"),
+            "top_k scan": lambda ix: ix.top_k(q, TOP_K, method="scan"),
+            "top_k k=200 scan": lambda ix: ix.top_k(q, 200, method="scan"),
+            "query_batch bands": lambda ix: ix.query_batch(q, return_scores=True,
+                                                           method="bands"),
+            "query_batch scan": lambda ix: ix.query_batch(q, return_scores=True, method="scan"),
+        }
+        self.facade2 = {}
+        for label, call in calls.items():
+            same(label, call)
+            self.facade2[label] = self.timed_qps(lambda c=call: c(card), n_queries)[0]
+        removed = np.random.RandomState(31).choice(n, n_remove, replace=False).tolist()
+        for ix in pair:
+            for key in removed:
+                ix.remove(key)
+        same("top_k bands after removals", calls["top_k bands"])
+        for ix in pair:
+            ix.compact()
+        check(card.status()["n_tombstoned"] == 0 and len(card) == n - n_remove,
+              "facade-2: compact left %s" % card.status())
+        for label in ("top_k scan", "query_batch bands"):
+            same("%s after compact" % label, calls[label])
+        for b in range(1, card.b + 1):
+            same("query_b b=%d" % b, lambda ix, b=b: ix.query_b(q[:100], b))
+        snaps = [ix.host_snapshot() for ix in pair]
+        check(snaps[0]["keys"] == snaps[1]["keys"]
+              and np.array_equal(snaps[0]["sigs"], snaps[1]["sigs"]),
+              "facade-2: host snapshots differ")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "lsh")
+            card.save(path)
+            loaded = TorchMinHashLSH.load(path, device="cpu")
+        for label, call in calls.items():
+            same("loaded %s" % label, call, [card, loaded])
+        batches = [q[i: i + 64] for i in range(0, n_queries, 64)]
+        for method in ("bands", "scan"):
+            stream = list(card.query_stream(batches, return_scores=True, method=method))
+            check(stream == [card.query_batch(b, return_scores=True, method=method)
+                             for b in batches], "facade-2: query_stream(%s) differs" % method)
+            stream = list(card.top_k_stream(batches, TOP_K, method=method))
+            check(stream == [card.top_k(b, TOP_K, method=method) for b in batches],
+                  "facade-2: top_k_stream(%s) differs" % method)
+        card.warmup()
+        log("[facade-2] cascade %d over %d rows (merged halves): card and CPU agree on "
+            "bands, scans (k 10, 200) and threshold answers, after %d removals and compact, "
+            "query_b b=1..%d, a card save loaded on the CPU, streams equal the batch calls; "
+            "q/s %s" % (FOREST16_PERM, n, n_remove, card.b,
+                        json.dumps({k: round(v, 1) for k, v in self.facade2.items()})))
+
+    def phase_ensemble_stream(self, index, q_sigs, q_sizes, batch: int = 256) -> None:
+        """The ensemble's ``query_stream`` (the scan, staged k rerun inside
+        the pipeline) against ``query_batch(method="scan")`` per batch."""
+        nq = q_sigs.shape[0]
+        batches = [(q_sigs[i: i + batch], q_sizes[i: i + batch]) for i in range(0, nq, batch)]
+        self.sync()
+        t0 = time.perf_counter()
+        stream = list(index.query_stream(batches, depth=4))
+        self.sync()
+        qps = nq / (time.perf_counter() - t0)
+        want = [index.query_batch(b, method="scan") for b in batches]
+        check(stream == want, "ensemble query_stream differs from the batch scans")
+        self.ens_stream_qps = qps
+        log("[ensemble] query_stream of %d batches of %d (depth 4): %.1f q/s; equal to the "
+            "batch scans" % (len(batches), batch, qps))
+
+    def phase_minhash_objects(self, n_docs: int = 64) -> None:
+        """minhash-objects: ``MinHash.update_batch`` of sign-16k docs on the
+        card (``device_mode="always"``, kernel 1) against the host path,
+        ``MinHash.bulk`` on the card, ``LeanMinHash`` bytes round trips,
+        and ``union`` / ``merge`` / ``count``."""
+        import struct
+
+        from datasketch_tpu_torch import LeanMinHash, MinHash
+
+        docs = make_corpus(n_docs, seed=42)
+        t0 = time.perf_counter()
+        card = []
+        for doc in docs:
+            m = MinHash(num_perm=NUM_PERM, device_mode="always", device=self.device)
+            m.update_batch(doc)
+            card.append(m)
+        rate = n_docs / (time.perf_counter() - t0)
+        for m, doc in zip(card, docs):
+            h = MinHash(num_perm=NUM_PERM, device_mode="disable")
+            h.update_batch(doc)
+            check(m == h, "update_batch on the card differs from the host path")
+        bulk = MinHash.bulk(docs, num_perm=NUM_PERM, device_mode="always", device=self.device)
+        check(bulk == card, "MinHash.bulk on the card differs from update_batch")
+        for m in card[:16]:
+            lean = LeanMinHash(m)
+            for order in ("<", ">"):
+                buf = bytearray(lean.bytesize(order))
+                lean.serialize(buf, order)
+                seed, count = struct.unpack_from(order + "qi", buf, 0)
+                check(seed == 1 and count == NUM_PERM, "LeanMinHash header %r" % ((seed, count),))
+                check(LeanMinHash.deserialize(buf, order) == lean,
+                      "LeanMinHash bytes do not round-trip")
+        u = MinHash.union(*card[:8])
+        m = card[0].copy()
+        for other in card[1:8]:
+            m.merge(other)
+        check(u == m, "union differs from repeated merge")
+        count = u.count()
+        check(math.isfinite(count) and count > TOKENS_PER_DOC,
+              "count of the union of 8 docs is %r" % count)
+        self.mh_rate = rate
+        log("[minhash-objects] %d docs by update_batch on the card: %.1f docs/s (one launch "
+            "each); equal to the host path and to MinHash.bulk; LeanMinHash bytes round-trip; "
+            "union of 8 = merge; count %.1f" % (n_docs, rate, count))
+
     def timed_qps(self, fn, n_queries: int, reps: int = 3):
         """(best q/s over ``reps`` synced calls after a warm one, the last
         answer)."""
@@ -1902,16 +2267,29 @@ def main() -> int:
             torch.cuda.empty_cache()
         torch.cuda.synchronize()
         bbit_counts = counts()
-        del sigs
         log("[bbit-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.bbit)))
         log("[launches] bbit-1m path: %s" % json.dumps(bbit_counts))
         for kname in BBIT_PATH:
             check(bbit_counts[kname] > 0, "kernel %s was not launched on the bbit-1m path"
                   % kname)
+        zero_counts()
+        forest, fq = smoke.phase_forest(sigs, src, dst)
+        torch.cuda.synchronize()
+        forest_counts = counts()
+        smoke.phase_forest_checks(forest, fq, sigs)
+        del forest, sigs
+        torch.cuda.empty_cache()
+        log("[forest-1m] %s: build %.3f s; q/s, recall, truncated %s"
+            % (nvidia_smi_line(), smoke.forest_build_s, json.dumps(smoke.forest_qps)))
+        log("[launches] forest-1m path: %s" % json.dumps(forest_counts))
+        for kname in FOREST_PATH:
+            check(forest_counts[kname] > 0, "kernel %s was not launched on the forest-1m path"
+                  % kname)
 
         docs, queries, qsrc = smoke.phase_ensemble_corpus()
         zero_counts()
         ens = smoke.phase_ensemble(docs, queries, qsrc)
+        smoke.phase_ensemble_stream(*ens[:3])
         torch.cuda.synchronize()
         ens_counts = counts()
         del docs, queries
@@ -1967,7 +2345,34 @@ def main() -> int:
         for kname in TEXT_PATH + BBIT_PATH:
             check(text_counts[kname] > 0, "kernel %s was not launched on the text path"
                   % kname)
-        paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts)
+        f_sigs, f_q, f_src = smoke.forest_corpus()
+        zero_counts()
+        smoke.phase_forest_16k(f_sigs, f_q, f_src)
+        torch.cuda.synchronize()
+        f16_counts = counts()
+        log("[forest-16k] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.forest16)))
+        log("[launches] forest-16k path: %s" % json.dumps(f16_counts))
+        zero_counts()
+        smoke.phase_facade2(f_sigs, f_q)
+        torch.cuda.synchronize()
+        facade2_counts = counts()
+        log("[facade-2] %s: q/s %s" % (nvidia_smi_line(), json.dumps(smoke.facade2)))
+        log("[launches] facade-2 path: %s" % json.dumps(facade2_counts))
+        del f_sigs, f_q
+        zero_counts()
+        smoke.phase_minhash_objects()
+        torch.cuda.synchronize()
+        mh_counts = counts()
+        log("[minhash-objects] %s: %.1f docs/s" % (nvidia_smi_line(), smoke.mh_rate))
+        log("[launches] minhash-objects path: %s" % json.dumps(mh_counts))
+        for label, got, path in (("forest-16k", f16_counts, FOREST16_PATH),
+                                 ("facade-2", facade2_counts, FACADE2_PATH),
+                                 ("minhash-objects", mh_counts, MINHASH_PATH)):
+            for kname in path:
+                check(got[kname] > 0, "kernel %s was not launched on the %s path"
+                      % (kname, label))
+        paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
+                 forest_counts, f16_counts, facade2_counts, mh_counts)
         launches = {name: sum(c[name] for c in paths) for name in lsh_counts}
         report = []
         for k in KERNELS:

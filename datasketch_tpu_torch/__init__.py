@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble,
-weighted MinHash (CWS) and b-bit MinHash serving paths, with the raw-text
-and token-id front ends.
+LSH Forest, weighted MinHash (CWS) and b-bit MinHash serving paths, with
+the raw-text and token-id front ends and the per-object MinHash /
+LeanMinHash sketches.
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -15,22 +16,41 @@ Importing this package creates no CUDA context and builds nothing: the
 kernels compile with ``nvcc`` at first use on the card.
 """
 
+from datasketch_tpu_torch.hashfunc import (
+    device_hash,
+    sha1_hash32,
+    sha1_hash64,
+    xxhash_hash32,
+)
 from datasketch_tpu_torch.models.b_bit_minhash import bBitMinHash
+from datasketch_tpu_torch.models.lean_minhash import LeanMinHash
+from datasketch_tpu_torch.models.lshforest import MinHashLSHForest
 from datasketch_tpu_torch.models.minhash import MinHash
 from datasketch_tpu_torch.models.torch_bbit import TorchBBitIndex
 from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
+from datasketch_tpu_torch.models.torch_forest import TorchMinHashLSHForest
 from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
 from datasketch_tpu_torch.models.weighted_minhash import (
     WeightedMinHash,
     WeightedMinHashGenerator,
 )
 
+WeightedMinHashLSHForest = MinHashLSHForest  # the reference's alias
+
 __all__ = [
     "bBitMinHash",
+    "device_hash",
+    "LeanMinHash",
     "MinHash",
+    "MinHashLSHForest",
+    "sha1_hash32",
+    "sha1_hash64",
     "TorchBBitIndex",
     "TorchMinHashLSH",
     "TorchMinHashLSHEnsemble",
+    "TorchMinHashLSHForest",
     "WeightedMinHash",
     "WeightedMinHashGenerator",
+    "WeightedMinHashLSHForest",
+    "xxhash_hash32",
 ]

@@ -33,6 +33,7 @@ from datasketch_tpu_torch.models.lshensemble import (
 from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
 from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix
 from datasketch_tpu_torch.ops import lsh_ops
+from datasketch_tpu_torch.utils.pipeline import stream_batches
 
 __all__ = ["TorchMinHashLSHEnsemble"]
 
@@ -415,9 +416,13 @@ class TorchMinHashLSHEnsemble:
         return [list(r) for r in results]
 
     def _query_scan(self, q_sigs: torch.Tensor, sizes: np.ndarray) -> list:
-        """Containment scan of the compact table: k = 16 first, rerun at
-        128 and then at ``max_results`` only while some query's exact
-        match count exceeds k; one fetch per run."""
+        """Containment scan of the compact table: one dispatch, one fetch
+        (and one more per rerun)."""
+        return self._scan_finish(self._scan_dispatch(q_sigs, sizes))
+
+    def _scan_dispatch(self, q_sigs: torch.Tensor, sizes: np.ndarray):
+        """Enqueue a containment scan at k = 16 on the card; returns
+        (ids, n_match, the scan at any k, k, max_out, keys by row)."""
         flat_sigs, flat_sizes, scan_keys, _ = self._scan_table()
         max_out = min(self.max_results, flat_sigs.shape[0])
         q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
@@ -426,16 +431,48 @@ class TorchMinHashLSHEnsemble:
             ids, _, n_match = lsh_ops.containment_scan(
                 flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, k
             )
-            host = torch.cat([ids, n_match[:, None]], dim=1).cpu().numpy()
-            return host[:, :-1], host[:, -1]
+            return ids, n_match
 
         scan_k = min(max_out, 16)
-        ids_host, n_host = scan(scan_k)
+        return scan(scan_k) + (scan, scan_k, max_out, scan_keys)
+
+    def _scan_finish(self, item) -> list:
+        """Fetch and decode one dispatched scan batch, rerunning it at 128
+        and then at ``max_results`` while some query's exact match count
+        exceeds k."""
+        ids, n_match, scan, scan_k, max_out, scan_keys = item
+        ids_host, n_host = ids.cpu().numpy(), n_match.cpu().numpy()
         while scan_k < max_out and int(n_host.max(initial=0)) > scan_k:
             scan_k = min(max_out, 128 if scan_k < 128 else max_out)
-            ids_host, n_host = scan(scan_k)
-        self.last_truncated = int(np.maximum(n_host - max_out, 0).sum())
+            ids, n_match = scan(scan_k)
+            ids_host, n_host = ids.cpu().numpy(), n_match.cpu().numpy()
+        self.last_truncated = int(np.maximum(n_host.astype(np.int64) - max_out, 0).sum())
         return [scan_keys[row[row >= 0]].tolist() for row in ids_host]
+
+    def query_stream(self, batches, depth: int = 4):
+        """Pipelined containment scans (the scan path of :meth:`query_batch`)
+        over an iterable of query batches, each in any form
+        :meth:`query_batch` takes: yields one result list per batch, with up
+        to ``depth`` batches in flight. A batch whose match counts overflow
+        k reruns when it is finished. Needs stored set sizes."""
+
+        def dispatch(batch):
+            sizes, q_sigs = self._as_query_batch(batch)
+            if not len(sizes) or not self._tables:
+                return len(sizes)
+            if q_sigs.shape[1] != self.h:
+                raise ValueError(
+                    "Expecting minhash with length %d, got %d" % (self.h, q_sigs.shape[1])
+                )
+            self._resolve_scan_method("scan", pow2_at_least(len(sizes), 8))
+            return self._scan_dispatch(q_sigs, sizes)
+
+        def finish(item):
+            if isinstance(item, int):
+                return [[] for _ in range(item)]
+            return self._scan_finish(item)
+
+        return stream_batches(batches, dispatch, finish, depth=depth)
 
     def warmup(self, batch_sizes=(8,), sizes=(100,)) -> None:
         """One synthetic ``query_batch`` per (batch size, set size), as the

@@ -9,7 +9,10 @@ the host receives one compact buffer per batch. Same banding, the same
 The stored table is not padded (the JAX package pads to a power of two to
 bound its compile shapes). The power-of-two row count is still computed,
 because ``method="auto"`` and the scan's result cap decide on it, so both
-facades take the same path for the same corpus.
+facades take the same path for the same corpus. Likewise ``query_b`` counts
+the cap overflow of the zero rows the JAX package pads a query batch with.
+Checkpoints (:meth:`TorchMinHashLSH.save` / :meth:`TorchMinHashLSH.load`)
+use the JAX package's ``.npz`` layout, so either package loads the other's.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ from typing import Hashable, Optional, Sequence
 import numpy as np
 import torch
 
-from datasketch_tpu_torch.device import as_sig_tensor, resolve_device
+from datasketch_tpu_torch.device import as_sig_tensor, resolve_device, to_numpy_u32
 from datasketch_tpu_torch.models.lsh_params import optimal_param
 from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.ops.cws_ops import kt_slots, kt_slots_np
+from datasketch_tpu_torch.utils.pipeline import stream_batches
 
 __all__ = ["TorchMinHashLSH"]
 
@@ -64,6 +68,17 @@ def _as_signature_matrix(minhashes, device: torch.device) -> torch.Tensor:
     return as_sig_tensor(_host_rows(rows), device)
 
 
+def _host(x):
+    """A tensor (any device) as a numpy array; other values unchanged."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _batch_rows(batch):
+    """A stream batch as :func:`_as_signature_matrix` takes it: matrices
+    and tensors as they are, other iterables as a list."""
+    return batch if isinstance(batch, (np.ndarray, torch.Tensor)) else list(batch)
+
+
 def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:
     """Host decode of compacted results: each row's valid slots, in order,
     -> keys (with scores when asked). One boolean index and one
@@ -94,6 +109,9 @@ class TorchMinHashLSH:
         rerank: filter candidates by estimated Jaccard >= threshold.
         max_results: cap on threshold-query results per query (None =
             all candidates); overflow is counted in ``last_truncated``.
+        cascade_perm: signature width when > ``num_perm``: rows and
+            queries are this wide, banding reads their first ``b * r <=
+            num_perm`` slots and every score (rerank, scan) all of them.
         device: ``"cuda"`` (default) or ``"cpu"`` (plain PyTorch versions
             of the kernels). No silent fallback.
     """
@@ -107,15 +125,20 @@ class TorchMinHashLSH:
         bucket_cap: int = 128,
         rerank: bool = True,
         max_results: Optional[int] = None,
+        cascade_perm: Optional[int] = None,
         device="cuda",
     ):
         if threshold > 1.0 or threshold < 0.0:
             raise ValueError("threshold must be in [0.0, 1.0]")
         if num_perm < 2:
             raise ValueError("Too few permutation functions")
+        if cascade_perm is not None and cascade_perm < num_perm:
+            raise ValueError("cascade_perm must be >= num_perm")
         self.device = resolve_device(device)
         self.threshold = threshold
         self.h = num_perm
+        self.cascade_perm = cascade_perm
+        self.in_width = cascade_perm or num_perm  # stored and query row width
         if params is not None:
             self.b, self.r = params
             if self.b * self.r > num_perm:
@@ -143,9 +166,9 @@ class TorchMinHashLSH:
         return 0 if self._sigs is None else self._sigs.shape[0]
 
     def _check_width(self, sigs: torch.Tensor) -> None:
-        if sigs.shape[0] and sigs.shape[1] != self.h:
+        if sigs.shape[0] and sigs.shape[1] != self.in_width:
             raise ValueError(
-                "Expecting minhash with length %d, got %d" % (self.h, sigs.shape[1])
+                "Expecting minhash with length %d, got %d" % (self.in_width, sigs.shape[1])
             )
 
     def index(self, keys: Sequence[Hashable], minhashes) -> None:
@@ -178,7 +201,7 @@ class TorchMinHashLSH:
         ``hashfunc="device"``). Query with sketches built the same way at
         equal seed (:meth:`query_tokens`, :meth:`top_k_tokens`)."""
         sigs = MinHash.bulk_signatures(
-            token_docs, scheme=scheme, num_perm=self.h, seed=seed, hashfunc="device",
+            token_docs, scheme=scheme, num_perm=self.in_width, seed=seed, hashfunc="device",
             out="device", device=self.device,
         )
         self.index(keys, sigs)
@@ -194,13 +217,13 @@ class TorchMinHashLSH:
 
     def _token_query_sigs(self, token_docs, seed: int) -> torch.Tensor:
         return MinHash.bulk_signatures(
-            token_docs, num_perm=self.h, seed=seed, hashfunc="device", out="device",
+            token_docs, num_perm=self.in_width, seed=seed, hashfunc="device", out="device",
             device=self.device,
         )
 
     def _text_query_sigs(self, texts, shingle_k: int, seed: int) -> torch.Tensor:
         return MinHash.bulk_from_text(
-            texts, k=shingle_k, num_perm=self.h, seed=seed, hashfunc="device",
+            texts, k=shingle_k, num_perm=self.in_width, seed=seed, hashfunc="device",
             out="device", device=self.device,
         )
 
@@ -228,9 +251,9 @@ class TorchMinHashLSH:
         if check_duplication and key in self._key_to_pos:
             raise ValueError("The given key already exists")
         hv = _host_rows([minhash])[0]
-        if hv.shape[0] != self.h:
+        if hv.shape[0] != self.in_width:
             raise ValueError(
-                "Expecting minhash with length %d, got %d" % (self.h, hv.shape[0])
+                "Expecting minhash with length %d, got %d" % (self.in_width, hv.shape[0])
             )
         self._key_to_pos[key] = len(self._keys)
         self._keys.append(key)
@@ -268,11 +291,56 @@ class TorchMinHashLSH:
         self._keys[pos] = None
         self._alive_dev = None
 
+    def merge(self, other: "TorchMinHashLSH", check_overlap: bool = False) -> None:
+        """Union another index into this one: its rows are appended (moved
+        to this index's device), its tombstones kept, and the band tables
+        rebuilt once. Indexes merge only at equal (num_perm, width, b, r)."""
+        if type(self) is not type(other):
+            raise ValueError(
+                "Cannot merge type %s and type %s." % (type(self).__name__, type(other).__name__)
+            )
+        if (self.h, self.in_width, self.b, self.r) != (other.h, other.in_width, other.b, other.r):
+            raise ValueError(
+                "Cannot merge %s with different initialization parameters."
+                % type(self).__name__
+            )
+        self._flush_pending()
+        other._flush_pending()
+        if check_overlap and set(self._key_to_pos) & set(other._key_to_pos):
+            raise ValueError("The keys are overlapping, duplicate key exists.")
+        if other._sigs is None or not other._n_real:
+            return
+        base = len(self._keys)
+        for i, k in enumerate(other._keys):
+            if k is not None:
+                self._key_to_pos[k] = base + i
+        self._keys.extend(other._keys)
+        n_self = self._n_real
+        other_alive = other._alive.copy()
+        self._append(other._sigs.to(self.device))
+        self._alive[n_self:] = other_alive
+
+    def compact(self) -> None:
+        """Drop tombstoned rows and rebuild the band tables."""
+        self._flush_pending()
+        if self._sigs is None or self._alive.all():
+            return
+        live = np.nonzero(self._alive)[0]
+        sigs = self._sigs[torch.from_numpy(live).to(self.device)]
+        self._keys = [self._keys[i] for i in live]
+        self._key_to_pos = {k: i for i, k in enumerate(self._keys)}
+        self._sigs = None
+        self._alive = None
+        self._append(sigs)
+
     def __contains__(self, key: Hashable) -> bool:
         return key in self._key_to_pos
 
     def __len__(self) -> int:
         return len(self._key_to_pos)
+
+    def is_empty(self) -> bool:
+        return len(self._key_to_pos) == 0
 
     def status(self) -> dict:
         """Health counters: live/tombstoned rows, banding, bucket occupancy
@@ -324,9 +392,9 @@ class TorchMinHashLSH:
 
     def _queries(self, minhashes) -> torch.Tensor:
         q = _as_signature_matrix(minhashes, self.device)
-        if q.shape[1] != self.h:
+        if q.shape[1] != self.in_width:
             raise ValueError(
-                "Expecting minhash with length %d, got %d" % (self.h, q.shape[1])
+                "Expecting minhash with length %d, got %d" % (self.in_width, q.shape[1])
             )
         return q
 
@@ -358,26 +426,64 @@ class TorchMinHashLSH:
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
         self._flush_pending()
-        if self._sigs is None or not len(self._keys):
-            return [[] for _ in minhashes]
-        q = self._queries(minhashes)
         cutoff = self.threshold if threshold is None else threshold
-        sel_ids, sel_sc, n_match, trunc, max_out = self._query_dispatch(
-            q, cutoff, method, self.rerank or return_scores
+        return self._query_finish(
+            self._query_batch_dispatch(minhashes, cutoff, method, return_scores),
+            return_scores,
         )
-        self.last_truncated = int(trunc) + int(
-            (n_match.long() - max_out).clamp_min(0).sum()
+
+    def query_stream(self, batches, threshold: Optional[float] = None,
+                     return_scores: bool = False, method: str = "auto", depth: int = 4):
+        """Pipelined :meth:`query_batch`: yields one result list per batch
+        of ``batches``, with up to ``depth`` batches in flight
+        (:func:`~datasketch_tpu_torch.utils.pipeline.stream_batches`). A
+        threshold scan whose match count overflows its first k reruns at
+        the full budget when its batch is finished."""
+        if method not in _METHODS:
+            raise ValueError("method must be 'auto', 'bands' or 'scan'")
+        self._flush_pending()
+        cutoff = self.threshold if threshold is None else threshold
+        return stream_batches(
+            batches,
+            lambda b: self._query_batch_dispatch(b, cutoff, method, return_scores),
+            lambda item: self._query_finish(item, return_scores),
+            depth=depth,
         )
-        ids_host = sel_ids.cpu().numpy()
-        sc_host = None if sel_sc is None else sel_sc.cpu().numpy()
-        return _decode_rows(ids_host, sc_host, self._keys, return_scores)
+
+    def _query_batch_dispatch(self, minhashes, cutoff: float, method: str,
+                              return_scores: bool):
+        """A batch's threshold query enqueued on the card, or the number of
+        queries when there is nothing to ask (an empty index)."""
+        minhashes = _batch_rows(minhashes)
+        if self._sigs is None or not len(self._keys):
+            return len(minhashes)
+        q = self._queries(minhashes)
+        if not q.shape[0]:
+            return 0
+        return self._query_dispatch(q, cutoff, method, self.rerank or return_scores)
+
+    def _query_finish(self, item, return_scores: bool) -> list:
+        """Fetch and decode one dispatched threshold batch; a scan whose
+        match count overflowed its first k reruns at the full budget."""
+        if isinstance(item, int):
+            return [[] for _ in range(item)]
+        sel_ids, sel_sc, n_match, trunc, max_out, escalate = item
+        n_host = _host(n_match)
+        if escalate is not None and (n_host > max_out).any():
+            return self._query_finish(escalate(), return_scores)
+        self.last_truncated = int(_host(trunc)) + int(
+            np.maximum(n_host.astype(np.int64) - max_out, 0).sum()
+        )
+        return _decode_rows(_host(sel_ids), _host(sel_sc), self._keys, return_scores)
 
     def _query_dispatch(self, q: torch.Tensor, cutoff: float, method: str,
                         need_scores: bool = True):
-        """One threshold batch on the card. Returns (sel_ids, sel_sc or
-        None, n_match, truncated, max_out); ``n_match`` counts matches
-        before the ``max_out`` cap. Without ``need_scores`` (rerank off,
-        no scores asked) the signature table is never read."""
+        """One threshold batch enqueued on the card. Returns (sel_ids,
+        sel_sc or None, n_match, truncated, max_out, escalate); ``n_match``
+        counts matches before the ``max_out`` cap, and ``escalate`` (the
+        scan's, else None) reruns the batch at the full budget. Without
+        ``need_scores`` (rerank off, no scores asked) the signature table
+        is never read."""
         if method == "auto" and not self.rerank:
             method = "bands"
         method = self._pick(method, q.shape[0])
@@ -390,16 +496,17 @@ class TorchMinHashLSH:
                 )
             max_out = min(self.max_results or 1024, pow2_at_least(self._n_real))
             alive = self._alive_state()[0]
+
+            def scan(k):
+                return lsh_ops.topk_scan(self._sigs, q, k, alive=alive, count_ge=cutoff)
+
+            # kernel-sized k first; the finish reruns at the full budget
+            # only when some query matched more rows than it returned
             k = min(max_out, lsh_ops.lsh_scan.MAX_K)
-            while True:
-                sel_ids, sel_sc, n_match = lsh_ops.topk_scan(
-                    self._sigs, q, k, alive=alive, count_ge=cutoff
-                )
-                # kernel-sized k first; rerun at the full budget only when
-                # some query matched more rows than it returned
-                if k == max_out or not bool((n_match > k).any()):
-                    return sel_ids, sel_sc, n_match, 0, k
-                k = max_out
+            escalate = None
+            if k < max_out:
+                escalate = lambda: scan(max_out) + (0, max_out, None)  # noqa: E731
+            return scan(k) + (0, k, escalate)
         c = self.b * self.bucket_cap
         max_out = c if self.max_results is None else min(self.max_results, c)
         all_alive = self._alive_state()[1]
@@ -412,18 +519,18 @@ class TorchMinHashLSH:
             else:
                 flat, trunc = self._probe(q)
                 sel_ids, n_match = lsh_ops.unique_compact(flat, max_out)
-            return sel_ids, None, n_match, trunc, max_out
+            return sel_ids, None, n_match, trunc, max_out, None
         cut = float(cutoff) if self.rerank else -1.0
         if all_alive:
             sel_ids, sel_sc, n_match, trunc = lsh_ops.query_fused(
                 self._sorted_fp, self._sorted_ids, self._sigs, q, self.b,
                 self.r, self.bucket_cap, cut, max_out,
             )
-            return sel_ids, sel_sc, n_match, trunc, max_out
+            return sel_ids, sel_sc, n_match, trunc, max_out, None
         flat, trunc = self._probe(q)
         scores = lsh_ops.rerank_jaccard(self._sigs, q, flat)
         sel_ids, sel_sc, n_match = lsh_ops.threshold_select(scores, flat, cut, max_out)
-        return sel_ids, sel_sc, n_match, trunc, max_out
+        return sel_ids, sel_sc, n_match, trunc, max_out, None
 
     def _probe(self, q: torch.Tensor):
         """Band candidates int32[Q, b*cap] with tombstones masked, and the
@@ -445,12 +552,38 @@ class TorchMinHashLSH:
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
         self._flush_pending()
+        return self._top_k_finish(self._top_k_batch_dispatch(minhashes, k, method))
+
+    def top_k_stream(self, batches, k: int, method: str = "auto", depth: int = 4):
+        """Pipelined :meth:`top_k`: yields one result list per batch of
+        ``batches``, with up to ``depth`` batches in flight."""
+        if method not in _METHODS:
+            raise ValueError("method must be 'auto', 'bands' or 'scan'")
+        self._flush_pending()
+        return stream_batches(
+            batches,
+            lambda b: self._top_k_batch_dispatch(b, k, method),
+            self._top_k_finish,
+            depth=depth,
+        )
+
+    def _top_k_batch_dispatch(self, minhashes, k: int, method: str):
+        """A batch's top-k enqueued on the card, or the number of queries
+        when there is nothing to ask (an empty index)."""
+        minhashes = _batch_rows(minhashes)
         if self._sigs is None or not len(self._keys):
-            return [[] for _ in minhashes]
+            return len(minhashes)
         q = self._queries(minhashes)
-        top_ids, top_sc, trunc = self._top_k_dispatch(q, k, method)
-        self.last_truncated = int(trunc)
-        return _decode_rows(top_ids.cpu().numpy(), top_sc.cpu().numpy(), self._keys, True)
+        if not q.shape[0]:
+            return 0
+        return self._top_k_dispatch(q, k, method)
+
+    def _top_k_finish(self, item) -> list:
+        if isinstance(item, int):
+            return [[] for _ in range(item)]
+        top_ids, top_sc, trunc = item
+        self.last_truncated = int(_host(trunc))
+        return _decode_rows(_host(top_ids), _host(top_sc), self._keys, True)
 
     def _top_k_dispatch(self, q: torch.Tensor, k: int, method: str):
         """One top-k batch on the card: (ids, scores, truncated)."""
@@ -469,3 +602,119 @@ class TorchMinHashLSH:
         scores = lsh_ops.rerank_jaccard(self._sigs, q, flat)
         top_ids, top_sc = lsh_ops.topk_candidates(scores, flat, k, max_dup=self.b)
         return top_ids, top_sc, trunc
+
+    def warmup(self, batch_sizes=(8, 64), k: int = 10, method: str = "auto") -> None:
+        """One synthetic :meth:`top_k` and :meth:`query_batch` per batch
+        size, as the JAX package defines it (there it pays the compiles;
+        here the first call builds the kernel library). No-op on an empty
+        index."""
+        self._flush_pending()
+        if self._sigs is None or not len(self._keys):
+            return
+        rng = np.random.RandomState(0)
+        for q in batch_sizes:
+            sigs = rng.randint(0, 1 << 32, size=(int(q), self.in_width),
+                               dtype=np.uint64).astype(np.uint32)
+            self.top_k(sigs, k, method=method)
+            self.query_batch(sigs)
+
+    # ------------------------------------------------------------ persistence
+
+    def _host_sigs(self) -> np.ndarray:
+        if self._sigs is None:
+            return np.zeros((0, self.in_width), np.uint32)
+        return to_numpy_u32(self._sigs)
+
+    def host_snapshot(self) -> dict:
+        """Host copy of the queryable state: ``{"keys", "sigs", "alive"}``,
+        ``sigs`` uint32 and ``alive`` None when nothing is tombstoned."""
+        self._flush_pending()
+        alive = None
+        if self._alive is not None and not bool(self._alive.all()):
+            alive = self._alive.copy()
+        return {"keys": list(self._keys), "sigs": self._host_sigs(), "alive": alive}
+
+    def save(self, path: str) -> None:
+        """Persist to an ``.npz`` in the JAX package's layout (signatures,
+        keys, tombstones; band tables are rebuilt on load). ``.npz`` is
+        appended when missing."""
+        from datasketch_tpu_torch.persist import atomic_savez, npz_path, pack_keys
+
+        self._flush_pending()
+        atomic_savez(
+            npz_path(path),
+            sigs=self._host_sigs(),
+            alive=self._alive if self._alive is not None else np.ones(0, dtype=bool),
+            keys=pack_keys(self._keys),
+            meta=np.array([self.h, self.b, self.r, self.bucket_cap, int(self.rerank),
+                           self.in_width], dtype=np.int64),
+            threshold=np.float64(self.threshold),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "TorchMinHashLSH":
+        """Load an index saved by either package (the 5-field ``meta`` of
+        older files too) onto ``device``.
+
+        SECURITY: the key list inside the file is a pickle payload -- only
+        load index files you created or trust.
+        """
+        from datasketch_tpu_torch.persist import npz_path, unpack_keys
+
+        data = np.load(npz_path(path), allow_pickle=False)
+        meta = [int(x) for x in data["meta"]]
+        h, b, r, cap, rerank = meta[:5]
+        in_width = meta[5] if len(meta) > 5 else h
+        index = cls(threshold=float(data["threshold"]), num_perm=h, params=(b, r),
+                    bucket_cap=cap, rerank=bool(rerank),
+                    cascade_perm=in_width if in_width != h else None, device=device)
+        keys = unpack_keys(data["keys"])
+        sigs = data["sigs"]
+        if sigs.shape[0]:
+            index._keys = keys
+            index._key_to_pos = {k: i for i, k in enumerate(keys) if k is not None}
+            index._append(as_sig_tensor(sigs, index.device))
+            if data["alive"].shape[0] == sigs.shape[0]:
+                index._alive = data["alive"].copy()
+        return index
+
+    # ------------------------------------------------------------ band-limited
+
+    def query_b(self, minhashes, b: int) -> list:
+        """Candidate key sets probing only the first ``b`` bands (no
+        rerank), as the containment ensemble probes its r-indexes."""
+        out = self.query_b_dispatch(minhashes, b)
+        if isinstance(out, list):
+            return out
+        return self.query_b_finish(out)
+
+    def query_b_dispatch(self, minhashes, b: int):
+        """Enqueue :meth:`query_b` on the card: (flat ids int32[Q, b*cap]
+        with tombstones masked, truncated, Q), or the answer itself when
+        the index is empty. ``truncated`` counts cap overflow over all
+        bands and over the zero rows that pad the JAX package's batch to
+        a power of two (at least 8)."""
+        if b > self.b:
+            raise ValueError("b must be less or equal to the number of bands")
+        self._flush_pending()
+        if self._sigs is None or not len(self._key_to_pos):
+            return [set() for _ in minhashes]
+        q = self._queries(minhashes)
+        nq = q.shape[0]
+        flat, trunc = lsh_ops.query_bands_masked(
+            self._sorted_fp, self._sorted_ids, q, self.b, self.r, self.bucket_cap, b
+        )
+        n_zero = pow2_at_least(nq, 8) - nq
+        if n_zero:
+            zero = torch.zeros((1, self.in_width), dtype=torch.int32, device=self.device)
+            trunc = trunc + n_zero * lsh_ops.query_bands_masked(
+                self._sorted_fp, self._sorted_ids, zero, self.b, self.r, self.bucket_cap, b
+            )[1]
+        return self._mask_dead(flat), trunc, nq
+
+    def query_b_finish(self, out) -> list:
+        flat, trunc, nq = out
+        ids_host = _host(flat)
+        self.last_truncated = int(_host(trunc))
+        return [{self._keys[p] for p in np.unique(row[row >= 0]).tolist()}
+                for row in ids_host[:nq]]

@@ -1,4 +1,5 @@
-"""Host SHA1 token hashing: the JAX package's C++ extension, built for the port.
+"""Host token hashing (SHA1 low 32 / 64 bits, XXH32): the JAX package's C++
+extension, built for the port.
 
 The source is compiled by path (``datasketch_tpu/native/src/
 dshash_module.cpp`` + ``dshash_core.h``) with the flags of
@@ -22,9 +23,20 @@ import numpy as np
 
 from datasketch_tpu_torch.kernels.build import BUILD_DIR
 
-__all__ = ["ALGO_SHA1_32", "load", "hash_ragged", "hash_shingles_padded"]
+__all__ = [
+    "ALGO_SHA1_32",
+    "ALGO_XXH32",
+    "ALGO_SHA1_64",
+    "load",
+    "hash_flat",
+    "hash_ragged",
+    "hash_shingles_padded",
+]
 
+# the extension's algorithm codes (``datasketch_tpu/native/corpus.py``)
 ALGO_SHA1_32 = 0
+ALGO_XXH32 = 1  # XXH32, seed 0
+ALGO_SHA1_64 = 2  # SHA1 low 64 bits, little-endian; uint64 output
 
 _SRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -75,14 +87,27 @@ def load():
     return _mod
 
 
-def hash_ragged(docs, out: np.ndarray = None):
-    """SHA1-low-32 of every token of ``docs`` (lists of bytes), back to back.
+def _dtype(algo: int):
+    return np.uint64 if algo == ALGO_SHA1_64 else np.uint32
+
+
+def hash_flat(tokens, algo: int = ALGO_SHA1_32) -> np.ndarray:
+    """Hash of every bytes token of ``tokens``: uint32[n] (uint64[n] for
+    ``ALGO_SHA1_64``)."""
+    out = np.empty(len(tokens), dtype=_dtype(algo))
+    load().hash_flat(tokens, out, algo, 0)
+    return out
+
+
+def hash_ragged(docs, out: np.ndarray = None, algo: int = ALGO_SHA1_32):
+    """Hash of every token of ``docs`` (lists of bytes), back to back.
 
     Args:
         docs: sequence of token sequences.
         out: optional writable uint32 buffer of at least the total token
             count (e.g. the numpy view of a pinned tensor); allocated when
             None.
+        algo: ``ALGO_SHA1_32`` or ``ALGO_XXH32``.
 
     Returns:
         (flat uint32[total] -- a view of ``out`` when given, lengths int32[B]).
@@ -100,13 +125,13 @@ def hash_ragged(docs, out: np.ndarray = None):
     elif out.dtype != np.uint32 or out.shape[0] < total:
         raise ValueError("out must be uint32 with room for %d tokens" % total)
     flat = out[:total]
-    load().hash_ragged(docs, flat, starts, ALGO_SHA1_32, 0)
+    load().hash_ragged(docs, flat, starts, algo, 0)
     return flat, lengths
 
 
-def hash_shingles_padded(texts, k: int, out: np.ndarray):
-    """SHA1-low-32 of every overlapping k-byte shingle of each text, hashed
-    in C straight out of the text buffers (the JAX package's
+def hash_shingles_padded(texts, k: int, out: np.ndarray, algo: int = ALGO_SHA1_32):
+    """Hash of every overlapping k-byte shingle of each text, hashed in C
+    straight out of the text buffers (the JAX package's
     ``corpus.hash_shingles_padded`` without its padding to a multiple).
 
     Args:
@@ -114,6 +139,7 @@ def hash_shingles_padded(texts, k: int, out: np.ndarray):
         k: shingle width in bytes.
         out: writable uint32 buffer of at least ``B * T`` slots (e.g. the
             numpy view of a pinned tensor).
+        algo: ``ALGO_SHA1_32`` or ``ALGO_XXH32``.
 
     Returns:
         (hashes uint32[B, T] -- a view of ``out``, lengths
@@ -127,5 +153,5 @@ def hash_shingles_padded(texts, k: int, out: np.ndarray):
     if out.dtype != np.uint32 or out.size < n * t:
         raise ValueError("out must be uint32 with room for %d slots" % (n * t))
     hashes = out.reshape(-1)[: n * t].reshape(n, t)
-    load().hash_shingles(texts, hashes, t, k, ALGO_SHA1_32, 0)
+    load().hash_shingles(texts, hashes, t, k, algo, 0)
     return hashes, lengths

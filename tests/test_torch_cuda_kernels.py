@@ -12,14 +12,16 @@ import pytest
 import torch
 
 from datasketch_tpu_torch import (
+    LeanMinHash,
     MinHash,
     TorchBBitIndex,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
+    TorchMinHashLSHForest,
     WeightedMinHashGenerator,
 )
 from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score, tiling
-from datasketch_tpu_torch.ops import bbit_ops, cws_ops, lsh_ops
+from datasketch_tpu_torch.ops import bbit_ops, cws_ops, forest_ops, lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
 pytestmark = pytest.mark.cuda
@@ -584,3 +586,87 @@ def test_bulk_from_text_on_the_card_matches_cpu(dev, hashfunc):
     got = MinHash.bulk_from_text(texts, k=9, out="device", device=dev, **kw)
     want = MinHash.bulk_from_text(texts, k=9, out="device", device="cpu", **kw)
     assert torch.equal(got.cpu(), want)
+
+
+def _forest_rows(n, p, seed):
+    rng = np.random.RandomState(seed)
+    sigs = rng.randint(0, 64, size=(n, p), dtype=np.uint64).astype(np.uint32)
+    sigs[n // 2:] = np.where(rng.rand(n - n // 2, p) < 0.8, sigs[: n - n // 2], sigs[n // 2:])
+    return sigs
+
+
+@pytest.mark.parametrize("n", [4096, 5000])
+def test_cuda_forest_matches_cpu_forest(dev, n, tmp_path):
+    sigs = _forest_rows(n, 256, n)
+    q = np.where(np.random.RandomState(1).rand(70, 256) < 0.75, sigs[:70], 7)
+    kw = dict(num_perm=128, cap=16, cascade_perm=256)
+    pair = [TorchMinHashLSHForest(device=d, **kw) for d in (dev, "cpu")]
+    for ix in pair:
+        ix.index(range(n), sigs)
+    for rank, method, k in (("forest", "forest", 10), ("jaccard", "forest", 10),
+                            ("jaccard", "scan", 10), ("jaccard", "scan", 200),
+                            ("jaccard", "auto", 10)):
+        got = [ix.query_batch(q, k, True, rank=rank, method=method) for ix in pair]
+        assert got[0] == got[1]
+        assert pair[0].last_truncated == pair[1].last_truncated
+    assert pair[0].status()["max_leaf_run"] == pair[1].status()["max_leaf_run"]
+    pair[0].save(str(tmp_path / "f"))
+    back = TorchMinHashLSHForest.load(str(tmp_path / "f.npz"), device="cpu")
+    assert back.query_batch(q, 10, True) == pair[0].query_batch(q, 10, True)
+    stream = list(pair[0].query_stream([q[:32], q[32:]], 10, True))
+    assert stream == [pair[0].query_batch(q[:32], 10, True), pair[0].query_batch(q[32:], 10, True)]
+
+
+def test_forest_build_on_the_card_matches_host_lexsort(dev):
+    sigs = _forest_rows(20000, 128, 3)
+    fps = forest_ops.prefix_fingerprints(torch.from_numpy(sigs.view(np.int32)).to(dev), 8, 16)
+    got_fps, got_ids = forest_ops.build_forest(fps)
+    want_fps, want_ids = forest_ops.build_forest_host(sigs, 8, 16)
+    assert np.array_equal(forest_ops.fingerprints_u32(got_fps), want_fps)
+    assert np.array_equal(got_ids.cpu().numpy(), want_ids)
+
+
+def test_cuda_lsh_facade_matches_cpu(dev, tmp_path):
+    rng = np.random.RandomState(4)
+    sigs = rng.randint(0, 1 << 32, size=(3000, 256), dtype=np.uint64).astype(np.uint32)
+    sigs[2000:] = np.where(rng.rand(1000, 256) < 0.8, sigs[:1000], sigs[2000:])
+    q = sigs[1990:2053]
+    pair = []
+    for d in (dev, "cpu"):
+        a = TorchMinHashLSH(threshold=0.5, cascade_perm=256, bucket_cap=8, device=d)
+        b = TorchMinHashLSH(threshold=0.5, cascade_perm=256, bucket_cap=8, device=d)
+        a.index(range(1500), sigs[:1500])
+        b.index(range(1500, 3000), sigs[1500:])
+        a.merge(b)
+        for key in range(0, 3000, 7):
+            a.remove(key)
+        pair.append(a)
+    for call in (lambda ix: ix.top_k(q, 10, method="bands"),
+                 lambda ix: ix.query_batch(q, return_scores=True, method="scan"),
+                 lambda ix: [ix.query_b(q, b) for b in (1, 3, ix.b)]):
+        got = [call(ix) for ix in pair]
+        assert got[0] == got[1] and pair[0].last_truncated == pair[1].last_truncated
+    for ix in pair:
+        ix.compact()
+    assert pair[0].top_k(q, 10) == pair[1].top_k(q, 10)
+    pair[0].save(str(tmp_path / "lsh"))
+    back = TorchMinHashLSH.load(str(tmp_path / "lsh"), device="cpu")
+    assert back.query_batch(q, method="bands") == pair[0].query_batch(q, method="bands")
+    batches = [q[:30], q[30:]]
+    assert list(pair[0].query_stream(batches, method="scan")) == \
+        [pair[0].query_batch(b, method="scan") for b in batches]
+    assert list(pair[0].top_k_stream(batches, 5)) == [pair[0].top_k(b, 5) for b in batches]
+
+
+def test_update_batch_on_the_card_matches_host(dev):
+    toks = [b"token-%d" % i for i in range(5000)]
+    card = MinHash(num_perm=100, device_mode="always", device=dev)
+    before = minhash_sign.launches
+    card.update_batch(toks[:10])
+    card.update_batch(toks)
+    assert minhash_sign.launches == before + 2
+    host = MinHash(num_perm=100, device_mode="disable")
+    host.update_batch(toks)
+    assert card == host
+    bulk = MinHash.bulk([toks[:3000], toks[3000:]], num_perm=100, device=dev)
+    assert LeanMinHash(MinHash.union(*bulk)) == LeanMinHash(host)

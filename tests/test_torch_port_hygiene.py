@@ -14,6 +14,7 @@ from datasketch_tpu_torch import (
     TorchBBitIndex,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
+    TorchMinHashLSHForest,
     WeightedMinHashGenerator,
 )
 from datasketch_tpu_torch.device import resolve_device
@@ -30,8 +31,9 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "import datasketch_tpu_torch",
         "from datasketch_tpu_torch import native, hashfunc, device, persist",
         "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops, cws_ops",
-        "from datasketch_tpu_torch.ops import bbit_ops, text_ops",
+        "from datasketch_tpu_torch.ops import bbit_ops, text_ops, forest_ops",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
+        "from datasketch_tpu_torch.models import lean_minhash, lshforest, torch_forest",
         "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
         "from datasketch_tpu_torch.models import weighted_minhash, b_bit_minhash, torch_bbit",
         "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
@@ -65,6 +67,10 @@ def test_cuda_without_a_card_raises():
         TorchBBitIndex(b=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinHash.bulk_from_text([b"abcdefghijk"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchMinHashLSHForest()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MinHash(device_mode="always").update_batch([b"a", b"b"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

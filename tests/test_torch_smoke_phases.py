@@ -2,8 +2,9 @@
 
 The plain PyTorch versions stand in for the kernels, so a change that
 breaks the script's signatures -> index -> serving -> facade-parity checks,
-its ensemble phases, its weighted (CWS) phases, its b-bit phases or its
-text phase fails here before it reaches a card.
+its ensemble phases, its weighted (CWS) phases, its b-bit phases, its text
+phase, its forest phases, the second facade phase or the MinHash-object
+phase fails here before it reaches a card.
 """
 
 import numpy as np
@@ -41,6 +42,7 @@ def test_smoke_ensemble_phases_on_cpu():
     docs, queries, src = smoke.phase_ensemble_corpus(n_sets=2000, n_queries=40)
     ens = smoke.phase_ensemble(docs, queries, src, escalates=False)
     assert set(smoke.ens_qps) == {"scan", "bands", "auto"}
+    smoke.phase_ensemble_stream(*ens[:3], batch=16)
     smoke.phase_ensemble_checks(*ens)
     smoke.phase_ensemble_parity(n_sets=1000)
 
@@ -74,3 +76,24 @@ def test_smoke_text_phase_on_cpu():
     smoke.phase_text(n_docs=100, n_queries=16, cpu_texts=16, n_tok_docs=200)
     assert set(smoke.text_rate) == {"device", "sha1"}
     assert all(rec >= 0.99 for _, rec in smoke.text_qps.values())
+
+
+def test_smoke_forest_1m_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    head = np.random.RandomState(2).randint(0, 1 << 32, (100, chip_smoke.NUM_PERM),
+                                            dtype=np.uint64).astype(np.uint32)
+    sigs, src, dst, _ = chip_smoke.synth_index(4096, head)
+    forest, fq = smoke.phase_forest(sigs, src, dst, n_queries=48)
+    assert set(smoke.forest_qps) == {"walk forest", "walk jaccard pool 512", "scan",
+                                     "auto jaccard", "scan k=256"}
+    smoke.phase_forest_checks(forest, fq, sigs, n_plain=8, parity_rows=2048, parity_queries=24)
+
+
+def test_smoke_forest_16k_facade2_and_minhash_phases_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    f_sigs, f_q, f_src = smoke.forest_corpus(n_docs=400, n_queries=48)
+    assert f_sigs.shape == (400, chip_smoke.FOREST16_PERM)
+    smoke.phase_forest_16k(f_sigs, f_q, f_src, batch=16, cpu_queries=16)
+    assert smoke.forest16["auto"][2] >= 0.9
+    smoke.phase_facade2(f_sigs, f_q, n_queries=48, n_remove=20)
+    smoke.phase_minhash_objects(n_docs=8)

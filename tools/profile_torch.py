@@ -6,9 +6,9 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 tools/profile_torch.py [CELL ...]
 
 CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
-``bbit-1m``, ``bbit-16m``, ``text-16k`` (default: all, in that order;
-``lsh-1m`` and ``bbit-1m`` index the signatures of ``sign-16k``'s corpus, as
-``chip_smoke.py`` does). Each cell draws
+``bbit-1m``, ``bbit-16m``, ``text-16k``, ``forest-1m`` (default: all, in
+that order; ``lsh-1m``, ``bbit-1m`` and ``forest-1m`` index the signatures
+of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
 ``torch.profiler`` (CPU and CUDA activity) over 3 calls after a warm one
 (builds: 1 call after a warm one):
@@ -30,7 +30,11 @@ CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
 - text-16k: ``MinHash.bulk_from_text`` of the 16,384 texts with the on-card
   and the SHA1 engine, ``TorchMinHashLSH.index_text``, ``top_k_text`` k =
   10 by scan and bands, and the b = 4 index's ``query_batch`` of the
-  queries' on-card sketches.
+  queries' on-card sketches;
+- forest-1m: the lsh-1m rows in a ``TorchMinHashLSHForest`` (num_perm 128,
+  l 8, cap 64): the build, ``query_batch`` k = 10 of 1,024 planted queries
+  by the walk (rank 'forest'; rank 'jaccard' with pool 512) and by the
+  scan, and the k = 256 scan.
 
 Each step prints one JSON line: wall ms per call (host clock, synced),
 device ms per call (the union of the CUDA kernel and copy intervals), the
@@ -47,7 +51,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
-         "text-16k")
+         "text-16k", "forest-1m")
 
 
 def device_time(prof):
@@ -256,6 +260,36 @@ def profile_text(torch, chip_smoke, dev):
     print(json.dumps({"recall": recall(src, rows, scored=False)}), flush=True)
 
 
+def profile_forest(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import TorchMinHashLSHForest
+
+    n = chip_smoke.N_INDEX
+    sigs, src, dst, _ = chip_smoke.synth_index(n, real)
+
+    def build_index():
+        forest = TorchMinHashLSHForest(num_perm=chip_smoke.NUM_PERM, l=chip_smoke.FOREST_L,
+                                       cap=chip_smoke.FOREST_CAP, device=dev)
+        forest.index(range(n), sigs)
+        return forest
+
+    forest = profiled(torch, "forest index %d rows" % n, build_index, reps=1)
+    nq = chip_smoke.N_QUERIES
+    queries, expect = sigs[dst[-nq:]], src[-nq:]
+    k = chip_smoke.TOP_K
+    for label, pool, kw in (("walk forest", 0, dict(method="forest", rank="forest")),
+                            ("walk jaccard pool %d" % chip_smoke.FOREST_POOL,
+                             chip_smoke.FOREST_POOL, dict(method="forest", rank="jaccard")),
+                            ("scan", 0, dict(method="scan", rank="jaccard"))):
+        forest.pool = pool
+        rows = profiled(torch, "forest query_batch k=%d %s" % (k, label),
+                        lambda kw=kw: forest.query_batch(queries, k, **kw))
+        print(json.dumps({"recall": recall(expect, rows, scored=False)}), flush=True)
+    forest.pool = 0
+    profiled(torch, "forest query_batch k=%d scan" % chip_smoke.FOREST_BIG_K,
+             lambda: forest.query_batch(queries, chip_smoke.FOREST_BIG_K, method="scan",
+                                        rank="jaccard"))
+
+
 def main() -> int:
     import torch
 
@@ -279,7 +313,7 @@ def main() -> int:
     smoke.phase_build()
     real = None
     for cell in CELLS:
-        needs_real = "lsh-1m" in cells or "bbit-1m" in cells
+        needs_real = bool({"lsh-1m", "bbit-1m", "forest-1m"} & set(cells))
         if cell not in cells and not (cell == "sign-16k" and needs_real):
             continue
         print(json.dumps({"cell": cell}), flush=True)
@@ -295,6 +329,8 @@ def main() -> int:
             profile_bbit(torch, chip_smoke, dev, real)
         elif cell == "bbit-16m":
             profile_bbit_16m(torch, chip_smoke, dev, smoke)
+        elif cell == "forest-1m":
+            profile_forest(torch, chip_smoke, dev, real)
         else:
             profile_text(torch, chip_smoke, dev)
         torch.cuda.empty_cache()
