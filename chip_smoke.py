@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving,
 LSH Ensemble containment serving, weighted MinHash (CWS) serving, b-bit
 MinHash serving, the raw-text front ends, LSH Forest serving, the rest of
-the LSH facade and the per-object MinHash API.
+the LSH facade, the per-object MinHash API, HyperLogLog, the OPH and
+C-MinHash schemes and LSHBloom.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -97,7 +98,30 @@ Phases (any failed check raises and the script exits non-zero):
     ``query_stream`` runs in phase 9);
 17. minhash-objects: ``MinHash.update_batch`` of 64 docs on the card
     (kernel 1) against the host path, ``MinHash.bulk``, ``LeanMinHash``
-    bytes, ``union`` / ``merge`` / ``count``.
+    bytes, ``union`` / ``merge`` / ``count``;
+18. hll: ``bench.py::bench_hll``'s configuration (``HyperLogLogPlusPlus``
+    p 14, 2,048 docs x 512 tokens) on the host path, its 131,072-unique
+    stream (relative error < 0.03) and its ids path; then
+    ``bulk_registers`` of 65,536 docs x 512 ids (seed 23, over 2**24) on the
+    card (``hashfunc="device"``, an int8[65,536, 16,384] register matrix)
+    with 1,024 sampled rows against the host path, ``hll_ops.count_batch``
+    on the card against the CPU and float64 (rtol 1e-5), the ``merge_regs``
+    fold against one sketch of the union, and ``HyperLogLog.update_batch``
+    on the card against the host; ``hll_ops``' device calls must grow;
+19. schemes: ``scheme="oph"`` and ``"cminhash"`` through
+    ``MinHash.bulk_signatures`` over the signature corpus (2,048 docs
+    against ``device="cpu"``; beside the permutation scheme's rate), a
+    ``TorchMinHashLSH`` built by ``index_tokens(scheme=)`` over 262,144
+    docs x 200 ids (seed 29, over 2**20) and served by ``top_k`` k = 10
+    (scan and bands, recall >= 0.99) to 1,024 queries with 10 % of their
+    ids replaced, and a 4,096-doc CUDA index against a ``device="cpu"``
+    one, with kernels 1, 2 and 3's launches read around it;
+20. bloom: a ``TorchMinHashLSHBloom`` (threshold 0.8, n 100,000,000, fp
+    0.01: b 9, r 13, 1.0 GiB of words on the card) holding the index
+    phase's 1,048,576 rows, inserted in 4 batches and all queried back,
+    1,024 fresh signatures (hits <= b x fp), and a 65,536-row filter at n
+    1,000,000 against a ``device="cpu"`` one word for word, saved on the
+    card and loaded on the card and on the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -154,6 +178,25 @@ FOREST_BIG_K = 256  # the scan's k_pad is 256 > 128: kernel 4
 FOREST_PLAIN_QUERIES = 64  # answers held against the plain twins on the card
 FOREST16_PERM = 256
 FOREST16_BATCH = 256
+HLL_P = 14
+HLL_BENCH_DOCS = 2048  # bench.py::bench_hll's corpus: docs x HLL_TOKENS b"d%d-t%d"
+HLL_TOKENS = 512
+HLL_STREAM = 1 << 17  # unique tokens of bench_hll's stream
+HLL_DOCS = 1 << 16  # the full-size device run: docs x HLL_TOKENS ids over 2**24
+HLL_SAMPLE = 1024  # rows held against a device_mode="disable" run
+SCHEMES = ("oph", "cminhash")
+SCH_CPU_DOCS = 2048  # sign-16k docs held against a device="cpu" run
+SCH_DOCS = 1 << 18  # the schemes' index: docs x TOKENS_PER_DOC ids over 2**20
+SCH_QUERIES = 1024
+SCH_REPLACE = 0.1  # share of a query's ids replaced (Jaccard ~0.82 to its source)
+SCH_PARITY_DOCS = 4096
+BLOOM_N = 100_000_000  # designed keys: LSHBloom's 100M-document dedup corpora
+BLOOM_FP = 0.01
+BLOOM_THRESHOLD = 0.8
+BLOOM_BATCHES = 4
+BLOOM_FRESH = 1024
+BLOOM_PARITY_ROWS = 1 << 16
+BLOOM_PARITY_N = 1_000_000
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -236,6 +279,7 @@ FOREST_PATH = ("topk_scan", "rerank", "score_matrix")
 FOREST16_PATH = ("topk_scan", "rerank")
 FACADE2_PATH = ("topk_scan", "rerank", "score_matrix")
 MINHASH_PATH = ("minhash_sign",)
+SCHEMES_PATH = ("minhash_sign", "topk_scan", "rerank")
 
 
 class SmokeFailure(RuntimeError):
@@ -1931,6 +1975,282 @@ class Smoke:
             "each); equal to the host path and to MinHash.bulk; LeanMinHash bytes round-trip; "
             "union of 8 = merge; count %.1f" % (n_docs, rate, count))
 
+    def phase_hll(self, n_bench: int = HLL_BENCH_DOCS, n_docs: int = HLL_DOCS,
+                  n_stream: int = HLL_STREAM, n_sample: int = HLL_SAMPLE) -> None:
+        """hll: ``bench.py::bench_hll``'s configuration on the host path,
+        then a full-size ``bulk_registers`` on the card (ids hashed there)
+        held against the host path, ``count_batch`` against the CPU and a
+        float64 numpy evaluation, the ``merge_regs`` fold against one
+        sketch of the union, and ``HyperLogLog.update_batch`` on the card
+        against the host."""
+        torch = self.torch
+        from datasketch_tpu_torch import HyperLogLog, HyperLogLogPlusPlus, native
+        from datasketch_tpu_torch.ops import hll_ops
+        from datasketch_tpu_torch.ops.hashing import mix64_np
+
+        t_phase = time.perf_counter()
+        p, m = HLL_P, 1 << HLL_P
+        self.hll = {}
+        docs = [[b"d%d-t%d" % (d, i) for i in range(HLL_TOKENS)] for d in range(n_bench)]
+        HyperLogLogPlusPlus.bulk_registers(docs[:8], p=p)  # builds the native module
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            regs = HyperLogLogPlusPlus.bulk_registers(docs, p=p)
+            rates.append(n_bench * HLL_TOKENS / (time.perf_counter() - t0))
+        check(regs.shape == (n_bench, m) and regs.dtype == np.int8,
+              "bulk_registers gave %s %s" % (regs.shape, regs.dtype))
+        one = HyperLogLogPlusPlus(p=p, device_mode="disable")
+        one.update_batch(docs[0])
+        check(np.array_equal(regs[0], one.reg), "bulk_registers row 0 differs from update_batch")
+        uniq = [b"u-%d" % i for i in range(n_stream)]
+        h = HyperLogLogPlusPlus(p=p, device_mode="disable")
+        t0 = time.perf_counter()
+        for i in range(0, n_stream, 1 << 15):
+            h.update_batch(uniq[i: i + (1 << 15)])
+        stream_rate = n_stream / (time.perf_counter() - t0)
+        rel_err = abs(h.count() - n_stream) / n_stream
+        check(rel_err < 0.03, "stream of %d uniques counted %.1f (rel err %.4f)"
+              % (n_stream, h.count(), rel_err))
+        ids = [np.arange(i, i + HLL_TOKENS, dtype=np.uint64)
+               for i in range(0, n_bench * HLL_TOKENS, HLL_TOKENS)]
+        t0 = time.perf_counter()
+        HyperLogLogPlusPlus.bulk_registers(ids, p=p, hashfunc="device")
+        ids_rate = n_bench * HLL_TOKENS / (time.perf_counter() - t0)
+        self.hll["bench"] = {"tokens_per_s": max(rates), "samples": rates,
+                             "stream_tokens_per_s": stream_rate, "rel_err": rel_err,
+                             "ids_tokens_per_s": ids_rate}
+        log("[hll] bench_hll config (p %d, %d docs x %d tokens, host): %s tokens/s; "
+            "%d-unique stream %.1f tokens/s, rel err %.5f; ids (host mix64) %.1f tokens/s"
+            % (p, n_bench, HLL_TOKENS, " / ".join("%.1f" % r for r in rates), n_stream,
+               stream_rate, rel_err, ids_rate))
+
+        big = np.random.RandomState(23).randint(0, 1 << 24, size=(n_docs, HLL_TOKENS)
+                                                ).astype(np.uint32)
+        kw = dict(p=p, hashfunc="device")
+        calls = hll_ops.device_calls
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        walls = []
+        for _ in range(2):
+            self.sync()
+            t0 = time.perf_counter()
+            regs = HyperLogLogPlusPlus.bulk_registers(big, device_mode="always",
+                                                      device=self.device, **kw)
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
+        check(regs.shape == (n_docs, m), "device registers have shape %s" % (regs.shape,))
+        if self.device.type == "cuda":
+            check(hll_ops.device_calls > calls, "hll_ops ran no call on the card")
+        rows = np.sort(np.random.RandomState(24).choice(n_docs, min(n_sample, n_docs),
+                                                        replace=False))
+        host = HyperLogLogPlusPlus.bulk_registers(big[rows], device_mode="disable", **kw)
+        check(np.array_equal(regs[rows], host),
+              "device registers differ from the host path on %d sampled rows" % len(rows))
+        dev_ids = torch.from_numpy(big.view(np.int32)).to(self.device)
+        lens = torch.full((n_docs,), HLL_TOKENS, dtype=torch.int32, device=self.device)
+        scatter_ms = self.time_ms(lambda: hll_ops.sketch_batch64_ids(dev_ids, lens, p),
+                                  iters=3)
+        del dev_ids
+        dev_regs = torch.from_numpy(regs).to(self.device)
+        counts = hll_ops.count_batch(dev_regs, p)[torch.from_numpy(rows).to(self.device)].cpu()
+        cpu_counts = hll_ops.count_batch(torch.from_numpy(regs[rows]), p)
+        f64 = count_f64(regs[rows], p)
+        err = max(float(((counts - cpu_counts).abs() / cpu_counts).max()),
+                  float(np.max(np.abs(counts.numpy() - f64) / f64)))
+        check(err <= 1e-5, "count_batch on the card is off by rtol %.3g" % err)
+        fold = dev_regs
+        while fold.shape[0] > 1:
+            half = fold.shape[0] // 2
+            rest = fold[2 * half:]
+            fold = torch.cat([hll_ops.merge_regs(fold[:half], fold[half: 2 * half]), rest])
+        union = HyperLogLogPlusPlus(p=p, device_mode="disable", hashfunc="device")
+        native.hll_scatter(union.reg, mix64_np(big.reshape(-1)), np.array([big.size]), p,
+                           union.max_rank)  # the host scatter of every hashed id
+        check(np.array_equal(fold[0].cpu().numpy(), union.reg),
+              "the merge_regs fold differs from one sketch of the union")
+        del dev_regs, fold
+        n_tok = n_docs * HLL_TOKENS
+        self.hll["device"] = {"docs_per_s": n_docs / min(walls), "tokens_per_s": n_tok / min(walls),
+                              "walls_s": walls, "scatter_ms": scatter_ms,
+                              "peak_device_bytes": peak, "union_count": union.count()}
+        log("[hll] %d docs x %d ids (%d tokens) bulk_registers on the card (upload + mix64 + "
+            "scatter + 1 GiB copy back): %.1f docs/s, %.1f tokens/s (walls %s s); "
+            "sketch_batch64_ids alone %s ms; peak device memory %d B; %d sampled rows equal "
+            "the host path; count_batch within rtol %.2e of the CPU and float64; merge_regs "
+            "fold equals the union's sketch (count %.1f)"
+            % (n_docs, HLL_TOKENS, n_tok, n_docs / min(walls), n_tok / min(walls),
+               " / ".join("%.3f" % w for w in walls), scatter_ms, peak, len(rows), err,
+               union.count()))
+
+        calls = hll_ops.device_calls
+        on_card = HyperLogLog(p=p, device_mode="always", device=self.device)
+        on_host = HyperLogLog(p=p, device_mode="disable")
+        t0 = time.perf_counter()
+        on_card.update_batch(uniq)
+        card_rate = n_stream / (time.perf_counter() - t0)
+        on_host.update_batch(uniq)
+        check(on_card == on_host, "HyperLogLog.update_batch on the card differs from the host")
+        if self.device.type == "cuda":
+            check(hll_ops.device_calls > calls, "HyperLogLog.update_batch ran no call on the card")
+        self.hll["update_batch_tokens_per_s"] = card_rate
+        self.hll["seconds"] = time.perf_counter() - t_phase
+        log("[hll] HyperLogLog.update_batch of %d tokens on the card: %.1f tokens/s, equal "
+            "to the host path; phase %.1f s" % (n_stream, card_rate, self.hll["seconds"]))
+
+    def phase_schemes(self, n_sig: int = SIG_DOCS, n_cpu: int = SCH_CPU_DOCS,
+                      n_docs: int = SCH_DOCS, n_queries: int = SCH_QUERIES,
+                      n_parity: int = SCH_PARITY_DOCS) -> None:
+        """schemes: ``scheme="oph"`` and ``"cminhash"`` through
+        ``MinHash.bulk_signatures`` over sign-16k's corpus (beside the
+        permutation scheme's rate), a ``TorchMinHashLSH`` built by
+        ``index_tokens(scheme=)`` and served by ``top_k`` (scan, bands), and
+        a small CUDA index against a ``device="cpu"`` one."""
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+
+        t_phase = time.perf_counter()
+        self.schemes = {}
+        corpus = make_corpus(n_sig, seed=42)
+        cpu_rows = np.random.RandomState(28).choice(n_sig, min(n_cpu, n_sig), replace=False)
+        rng = np.random.RandomState(29)
+        ids = rng.randint(0, 1 << 20, size=(n_docs, TOKENS_PER_DOC)).astype(np.uint32)
+        src = rng.randint(0, n_docs, size=n_queries)
+        q_ids = ids[src].copy()
+        swap = rng.rand(*q_ids.shape) < SCH_REPLACE
+        q_ids[swap] = rng.randint(0, 1 << 20, size=int(swap.sum()))
+        kw = dict(num_perm=NUM_PERM, seed=1, out="device", device=self.device)
+        for scheme in ("permutation",) + SCHEMES:
+            MinHash.bulk_signatures(corpus[:1024], scheme=scheme, **kw)  # first call
+            rates = []
+            for _ in range(2):
+                self.sync()
+                t0 = time.perf_counter()
+                sigs = MinHash.bulk_signatures(corpus, scheme=scheme, **kw)
+                self.sync()
+                rates.append(n_sig / (time.perf_counter() - t0))
+            rec = {"sigs_per_s": max(rates)}
+            self.schemes[scheme] = rec
+            if scheme == "permutation":
+                log("[schemes] permutation: %s signatures/s over %d docs x %d SHA1 tokens"
+                    % (" / ".join("%.1f" % r for r in rates), n_sig, TOKENS_PER_DOC))
+                continue
+            cpu = MinHash.bulk_signatures([corpus[i] for i in cpu_rows], scheme=scheme,
+                                          num_perm=NUM_PERM, seed=1, device="cpu")
+            check(np.array_equal(sigs[torch.from_numpy(cpu_rows).to(self.device)].cpu()
+                                 .numpy().view(np.uint32), cpu),
+                  "%s signatures on the card differ from device='cpu' on %d docs"
+                  % (scheme, len(cpu_rows)))
+            index = TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=self.device)
+            self.sync()
+            t0 = time.perf_counter()
+            index.index_tokens(range(n_docs), ids, scheme=scheme)
+            self.sync()
+            rec["build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            q_sigs = MinHash.bulk_signatures(q_ids, scheme=scheme, hashfunc="device", **kw)
+            self.sync()
+            rec["query_sigs_per_s"] = n_queries / (time.perf_counter() - t0)
+            for method in ("scan", "bands"):
+                qps, rows = self.timed_qps(
+                    lambda m=method: index.top_k(q_sigs, TOP_K, method=m), n_queries)
+                recall = float(np.mean([int(w) in [k for k, _ in row]
+                                        for w, row in zip(src, rows)]))
+                check(recall >= 0.99, "%s top_k(%s) recall %.4f < 0.99"
+                      % (scheme, method, recall))
+                rec["top_k %s" % method] = (qps, recall)
+            del index, q_sigs
+            pair = [TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, device=d)
+                    for d in (self.device, "cpu")]
+            for ix in pair:
+                ix.index_tokens(range(n_parity), ids[:n_parity], scheme=scheme)
+            q_small = q_ids[src < n_parity][:256]
+            sigs_pair = [MinHash.bulk_signatures(q_small, scheme=scheme, num_perm=NUM_PERM,
+                                                 hashfunc="device", device=d)
+                         for d in (self.device, "cpu")]
+            check(np.array_equal(*sigs_pair), "%s query signatures: card and CPU differ" % scheme)
+            for method in ("scan", "bands"):
+                got = [ix.top_k(sigs_pair[0], TOP_K, method=method) for ix in pair]
+                check(got[0] == got[1], "%s %d-doc index top_k(%s): card and CPU differ"
+                      % (scheme, n_parity, method))
+            log("[schemes] %-8s %s signatures/s (%d docs equal device='cpu'); index_tokens of "
+                "%d docs x %d ids %.3f s; %d queries sketched at %.1f q/s; top_k k=%d scan "
+                "%.1f q/s recall %.4f, bands %.1f q/s recall %.4f; a %d-doc CUDA index answers "
+                "as a device='cpu' one" % (
+                    scheme, " / ".join("%.1f" % r for r in rates), len(cpu_rows), n_docs,
+                    TOKENS_PER_DOC, rec["build_s"], n_queries, rec["query_sigs_per_s"], TOP_K,
+                    *rec["top_k scan"], *rec["top_k bands"], n_parity))
+        self.schemes["seconds"] = time.perf_counter() - t_phase
+        log("[schemes] phase %.1f s" % self.schemes["seconds"])
+
+    def phase_bloom(self, sigs: np.ndarray, n: int = BLOOM_N,
+                    n_parity: int = BLOOM_PARITY_ROWS, parity_n: int = BLOOM_PARITY_N,
+                    expect=(9, 13, 958505838, 7)) -> None:
+        """bloom: a ``TorchMinHashLSHBloom`` sized for ``n`` keys on the card,
+        the index phase's rows inserted in batches and all queried back (no
+        false negative), fresh signatures (false positives within b x fp),
+        then a smaller filter against a ``device="cpu"`` one word for word,
+        and its ``save`` / ``load`` on the card and onto the CPU (the large
+        filter's compressed save takes ~50 s: ``tools/profile_torch.py
+        bloom`` times it)."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchMinHashLSHBloom
+
+        t_phase = time.perf_counter()
+        bloom = TorchMinHashLSHBloom(threshold=BLOOM_THRESHOLD, num_perm=NUM_PERM, n=n,
+                                     fp=BLOOM_FP, device=self.device)
+        shape = (bloom.b, bloom.r, bloom.num_bits, bloom.num_hashes)
+        check(expect is None or shape == tuple(expect), "bloom (b, r, bits, probes) %s" % (shape,))
+        n_rows = sigs.shape[0]
+        batches = np.array_split(np.arange(n_rows), BLOOM_BATCHES)
+        self.sync()
+        t0 = time.perf_counter()
+        for rows in batches:
+            bloom.insert_batch(sigs[rows])
+        self.sync()
+        insert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = np.concatenate([bloom.query_batch(sigs[rows]) for rows in batches])
+        query_s = time.perf_counter() - t0
+        check(hit.all(), "%d inserted rows were not found (false negatives)" % (~hit).sum())
+        fresh = np.random.RandomState(31).randint(0, 1 << 32, size=(BLOOM_FRESH, NUM_PERM),
+                                                  dtype=np.uint64).astype(np.uint32)
+        fp_rate = float(bloom.query_batch(fresh).mean())
+        check(fp_rate <= bloom.b * BLOOM_FP, "false-positive rate %.4f > b x fp" % fp_rate)
+        words_bytes = bloom._words.numel() * 4
+        del bloom
+        pair = [TorchMinHashLSHBloom(threshold=BLOOM_THRESHOLD, num_perm=NUM_PERM, n=parity_n,
+                                     fp=BLOOM_FP, device=d) for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.insert_batch(sigs[:n_parity])
+        check(torch.equal(pair[0]._words.cpu(), pair[1]._words),
+              "the %d-row CUDA filter's words differ from device='cpu'" % n_parity)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            pair[0].save(os.path.join(tmp, "bloom"))
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = TorchMinHashLSHBloom.load(os.path.join(tmp, "bloom"), device=self.device)
+            load_s = time.perf_counter() - t0
+            check(torch.equal(back._words, pair[0]._words), "a card checkpoint loads other words")
+            on_cpu = TorchMinHashLSHBloom.load(os.path.join(tmp, "bloom"), device="cpu")
+            check(torch.equal(on_cpu._words, pair[1]._words),
+                  "a card checkpoint loaded on the CPU holds other words")
+            probe = np.concatenate([sigs[:512], fresh[:512]])
+            check(np.array_equal(on_cpu.query_batch(probe), back.query_batch(probe)),
+                  "the CPU copy of the filter answers otherwise")
+        self.bloom = {"inserts_per_s": n_rows / insert_s, "queries_per_s": n_rows / query_s,
+                      "fp_rate": fp_rate, "save_s": save_s, "load_s": load_s,
+                      "words_bytes": words_bytes, "seconds": time.perf_counter() - t_phase}
+        log("[bloom] b %d, r %d, %d bits a band, %d probes: %d B of words on the card; %d rows "
+            "inserted in %d batches at %.1f rows/s, queried back at %.1f rows/s (no false "
+            "negative); %d fresh signatures hit at %.4f; a %d-row filter (n %d) equals "
+            "device='cpu' word for word, its card checkpoint (save %.2f s, load %.2f s) loads "
+            "on the card and on the CPU and answers alike; phase %.1f s"
+            % (*shape, words_bytes, n_rows, BLOOM_BATCHES, self.bloom["inserts_per_s"],
+               self.bloom["queries_per_s"], BLOOM_FRESH, fp_rate, n_parity, parity_n, save_s,
+               load_s, self.bloom["seconds"]))
+
     def timed_qps(self, fn, n_queries: int, reps: int = 3):
         """(best q/s over ``reps`` synced calls after a warm one, the last
         answer)."""
@@ -2181,6 +2501,17 @@ def synth_index(n: int, head: np.ndarray, dup_rate: float = 0.2, seed: int = 9):
     return sigs, src, dst, np.concatenate([[0], near])
 
 
+def count_f64(regs: np.ndarray, p: int) -> np.ndarray:
+    """``hll_ops.count_batch``'s formula in float64 numpy."""
+    m = 1 << p
+    alpha = {4: 0.673, 5: 0.697, 6: 0.709}.get(p, 0.7213 / (1.0 + 1.079 / m))
+    e = alpha * float(m) ** 2 / np.exp2(-regs.astype(np.float64)).sum(axis=1)
+    num_zero = (regs == 0).sum(axis=1)
+    lc = m * np.log(m / np.maximum(num_zero, 1))
+    out = np.where((e <= 2.5 * m) & (num_zero > 0), lc, e)
+    return np.where(out > 2.0 ** 32 / 30.0, -(2.0 ** 32) * np.log1p(-out / 2.0 ** 32), out)
+
+
 def int_rate(torch, device) -> float:
     """Integer ALU operations per second of ``device``: 64 lanes per SM per
     clock, times its SMs, times the maximum SM clock that ``nvidia-smi``
@@ -2277,7 +2608,7 @@ def main() -> int:
         torch.cuda.synchronize()
         forest_counts = counts()
         smoke.phase_forest_checks(forest, fq, sigs)
-        del forest, sigs
+        del forest
         torch.cuda.empty_cache()
         log("[forest-1m] %s: build %.3f s; q/s, recall, truncated %s"
             % (nvidia_smi_line(), smoke.forest_build_s, json.dumps(smoke.forest_qps)))
@@ -2371,8 +2702,26 @@ def main() -> int:
             for kname in path:
                 check(got[kname] > 0, "kernel %s was not launched on the %s path"
                       % (kname, label))
+        torch.cuda.empty_cache()
+        smoke.phase_hll()
+        torch.cuda.empty_cache()
+        log("[hll] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hll)))
+        zero_counts()
+        smoke.phase_schemes()
+        torch.cuda.synchronize()
+        sch_counts = counts()
+        torch.cuda.empty_cache()
+        log("[schemes] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.schemes)))
+        smoke.phase_bloom(sigs)
+        del sigs
+        torch.cuda.empty_cache()
+        log("[bloom] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.bloom)))
+        log("[launches] schemes path: %s" % json.dumps(sch_counts))
+        for kname in SCHEMES_PATH:
+            check(sch_counts[kname] > 0, "kernel %s was not launched on the schemes path"
+                  % kname)
         paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
-                 forest_counts, f16_counts, facade2_counts, mh_counts)
+                 forest_counts, f16_counts, facade2_counts, mh_counts, sch_counts)
         launches = {name: sum(c[name] for c in paths) for name in lsh_counts}
         report = []
         for k in KERNELS:

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble,
-LSH Forest, weighted MinHash (CWS) and b-bit MinHash serving paths, with
-the raw-text and token-id front ends and the per-object MinHash /
-LeanMinHash sketches.
+LSH Forest, LSHBloom, weighted MinHash (CWS) and b-bit MinHash serving
+paths, with the raw-text and token-id front ends, the OPH and C-MinHash
+signature schemes, the per-object MinHash / LeanMinHash sketches and the
+HyperLogLog / HyperLogLog++ cardinality sketches.
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -23,7 +24,9 @@ from datasketch_tpu_torch.hashfunc import (
     xxhash_hash32,
 )
 from datasketch_tpu_torch.models.b_bit_minhash import bBitMinHash
+from datasketch_tpu_torch.models.hyperloglog import HyperLogLog, HyperLogLogPlusPlus
 from datasketch_tpu_torch.models.lean_minhash import LeanMinHash
+from datasketch_tpu_torch.models.lsh_bloom import MinHashLSHBloom, TorchMinHashLSHBloom
 from datasketch_tpu_torch.models.lshforest import MinHashLSHForest
 from datasketch_tpu_torch.models.minhash import MinHash
 from datasketch_tpu_torch.models.torch_bbit import TorchBBitIndex
@@ -40,13 +43,17 @@ WeightedMinHashLSHForest = MinHashLSHForest  # the reference's alias
 __all__ = [
     "bBitMinHash",
     "device_hash",
+    "HyperLogLog",
+    "HyperLogLogPlusPlus",
     "LeanMinHash",
     "MinHash",
+    "MinHashLSHBloom",
     "MinHashLSHForest",
     "sha1_hash32",
     "sha1_hash64",
     "TorchBBitIndex",
     "TorchMinHashLSH",
+    "TorchMinHashLSHBloom",
     "TorchMinHashLSHEnsemble",
     "TorchMinHashLSHForest",
     "WeightedMinHash",

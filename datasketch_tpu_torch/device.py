@@ -16,9 +16,11 @@ import torch
 __all__ = [
     "resolve_device",
     "u32_bits",
+    "u32_values",
     "u32_to_i32",
     "to_numpy_u32",
     "as_sig_tensor",
+    "upload_bits",
     "inv_width",
     "counts_to_scores",
 ]
@@ -55,6 +57,17 @@ def resolve_device(device="cuda") -> torch.device:
 
 def u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int32 tensor of uint32 bit patterns -> int64 values 0..2**32-1."""
+    return x.to(torch.int64) & LOW32
+
+
+def u32_values(x: torch.Tensor) -> torch.Tensor:
+    """Any integer tensor of uint32 values -> int64 0..2**32-1: uint8 and
+    uint16 zero-extend, int32 / uint32 are read as bit patterns, int64 is
+    masked to its low 32 bits."""
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16).to(torch.int64) & 0xFFFF
+    if x.dtype == torch.uint32:
+        x = x.view(torch.int32)
     return x.to(torch.int64) & LOW32
 
 
@@ -97,3 +110,15 @@ def as_sig_tensor(x, device: torch.device) -> torch.Tensor:
         arr = arr.astype(np.uint64).astype(np.uint32)
     arr = np.ascontiguousarray(arr)
     return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def upload_bits(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> contiguous tensor on ``device``; uint32 and uint64
+    arrays go up as int32 / int64 bit patterns (uint8 and uint16 as they
+    are)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    elif arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
+    return torch.from_numpy(arr).to(device)

@@ -1,8 +1,8 @@
 """MinHash: the per-object sketch, and bulk signatures on the card.
 
-Port of ``datasketch_tpu/models/minhash.py`` for ``scheme="permutation"``.
-The object API (``update``, ``update_batch``, ``jaccard``, ``merge``,
-``union``, ``bulk``, ``generator``, pickling) keeps its state as a host
+Port of ``datasketch_tpu/models/minhash.py``. The object API (``update``,
+``update_batch``, ``jaccard``, ``merge``, ``union``, ``bulk``,
+``generator``, pickling) keeps its state as a host
 uint64 array, equal to the JAX package's and the reference's at equal
 ``(seed, num_perm, hashfunc)``; ``update_batch`` of many tokens (and
 ``bulk``) sign on the card through kernel 1. The bulk classmethods turn a
@@ -20,6 +20,11 @@ Two token paths, as in the JAX package:
 Raw text takes the same two engines: SHA1 of every shingle in the native
 module on the host, or the raw bytes uploaded and the shingles hashed on
 the card (``hashfunc="device"``, :mod:`datasketch_tpu_torch.ops.text_ops`).
+
+The bulk paths also take ``scheme="oph"`` (:mod:`datasketch_tpu_torch.ops.
+oph`) and ``scheme="cminhash"`` (:mod:`datasketch_tpu_torch.ops.cminhash`):
+tokens are hashed on the host, then the scheme runs on the device. Their
+signatures are not value-compatible with the permutation scheme's.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 from datasketch_tpu_torch import native
 from datasketch_tpu_torch.device import as_sig_tensor, resolve_device, to_numpy_u32
 from datasketch_tpu_torch.hashfunc import device_hash, sha1_hash32, xxhash_hash32
-from datasketch_tpu_torch.ops import minhash_ops, text_ops
+from datasketch_tpu_torch.ops import cminhash, minhash_ops, oph, text_ops
 from datasketch_tpu_torch.ops.hashing import mix32_np
 
 __all__ = ["MinHash"]
@@ -55,9 +60,31 @@ _NATIVE_ALGO = {sha1_hash32: native.ALGO_SHA1_32, xxhash_hash32: native.ALGO_XXH
 _TOKEN_BUDGET = 1 << 21
 
 
-def _check_scheme(scheme: str) -> None:
-    if scheme != "permutation":
-        raise ValueError("only scheme='permutation' is ported, got %r" % (scheme,))
+_SCHEMES = ("permutation", "oph", "cminhash")
+
+
+def _alt_scheme_signatures(scheme: str, padded: torch.Tensor, lengths: torch.Tensor,
+                           num_perm: int, seed: int) -> torch.Tensor:
+    """Signatures of a padded [B, T] hash batch by a non-default scheme."""
+    if scheme == "oph":
+        return oph.oph_signatures(padded, lengths, num_perm, seed=seed)
+    return cminhash.cminhash_signatures(padded, lengths, num_perm, seed=seed)
+
+
+def _check_scheme(scheme: str, custom_perms) -> None:
+    if scheme not in _SCHEMES:
+        raise ValueError("unknown signature scheme: %r" % (scheme,))
+    if scheme != "permutation" and custom_perms is not None:
+        raise ValueError("custom permutations are meaningless for scheme %r" % (scheme,))
+
+
+def _pad_flat(flat: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Docs' hashes back to back -> uint32[B, T], T the longest doc (at
+    least 1), zero past each length."""
+    t = max(1, int(lengths.max(initial=0)))
+    padded = np.zeros((lengths.shape[0], t), dtype=np.uint32)
+    padded[np.arange(t)[None, :] < lengths[:, None]] = flat
+    return padded
 
 
 def pow2_at_least(x: int, floor: int = 128) -> int:
@@ -274,6 +301,20 @@ class MinHash:
             return mix32_np(np.asarray(tokens).astype(np.uint32))
         return np.array([self.hashfunc(t) for t in tokens], dtype=np.uint64).astype(np.uint32)
 
+    def _hash_flat(self, docs: list) -> np.ndarray:
+        """uint32 hashes of every token of ``docs``, back to back: one
+        native call for SHA1 / XXH32, one vectorized fmix32 for
+        ``device_hash``, else :meth:`_hash_tokens` per doc."""
+        algo = _NATIVE_ALGO.get(self.hashfunc)
+        if algo is not None:
+            return native.hash_ragged([d if isinstance(d, list) else list(d) for d in docs],
+                                      algo=algo)[0]
+        if self.hashfunc is device_hash:
+            return mix32_np(np.concatenate(
+                [np.asarray(d).astype(np.uint32) for d in docs] or [np.zeros(0, np.uint32)]))
+        return np.concatenate(
+            [self._hash_tokens(list(d)) for d in docs] or [np.zeros(0, np.uint32)])
+
     def jaccard(self, other: "MinHash") -> float:
         """Estimate Jaccard similarity against another sketch."""
         if other.seed != self.seed:
@@ -355,25 +396,37 @@ class MinHash:
     @classmethod
     def generator(cls, b: Iterable, scheme: str = "permutation", **minhash_kwargs):
         """Generator form of :meth:`bulk`: sketches in chunks of 1,024
-        documents, each chunk signed on ``device`` by kernel 1 once it
-        holds 4,096 tokens (``device_mode="auto"``), else on the host."""
-        _check_scheme(scheme)
+        documents, each chunk signed on ``device`` (by kernel 1, or by the
+        ``scheme``'s torch ops) once it holds 4,096 tokens
+        (``device_mode="auto"``), else on the host (the CPU)."""
         proto = cls(**minhash_kwargs)
+        _check_scheme(scheme, proto._custom_permutations())
         chunk: list = []
         for doc in b:
             chunk.append(doc)
             if len(chunk) >= 1024:
-                yield from proto._bulk_chunk(chunk)
+                yield from proto._bulk_chunk(chunk, scheme)
                 chunk = []
         if chunk:
-            yield from proto._bulk_chunk(chunk)
+            yield from proto._bulk_chunk(chunk, scheme)
 
-    def _bulk_chunk(self, docs: list):
+    def _bulk_chunk(self, docs: list, scheme: str = "permutation"):
         hashed = [self._hash_tokens(list(doc)) for doc in docs]
         total = sum(h.size for h in hashed)
-        if self._device_mode == "disable" or (
+        on_host = self._device_mode == "disable" or (
             total < _DEVICE_BATCH_THRESHOLD and self._device_mode != "always"
-        ):
+        )
+        if scheme != "permutation":
+            dev = torch.device("cpu") if on_host else resolve_device(self.device)
+            lengths = np.fromiter((h.size for h in hashed), np.int32, count=len(hashed))
+            padded = _pad_flat(np.concatenate(hashed), lengths)
+            sigs = _alt_scheme_signatures(
+                scheme, _upload(padded.view(np.int32), dev), _upload(lengths, dev),
+                self.num_perm, self.seed,
+            )
+            yield from self._rows(to_numpy_u32(sigs).astype(np.uint64))
+            return
+        if on_host:
             for hv in hashed:
                 m = self.copy()
                 if hv.size:
@@ -386,7 +439,10 @@ class MinHash:
             _upload(np.concatenate(hashed).view(np.int32), dev), _upload(lengths, dev),
             self.seed, self.num_perm, permutations=self._custom_permutations(),
         )
-        for row in to_numpy_u32(sigs).astype(np.uint64):
+        yield from self._rows(to_numpy_u32(sigs).astype(np.uint64))
+
+    def _rows(self, sigs: np.ndarray):
+        for row in sigs:
             yield MinHash(seed=self.seed, hashfunc=self.hashfunc, hashvalues=row,
                           permutations=self.permutations, device_mode=self._device_mode,
                           device=self.device)
@@ -401,7 +457,9 @@ class MinHash:
                 the native module), integer token-id arrays
                 (``hashfunc="device"``), or tokens for any other callable
                 (hashed by it on the host).
-            scheme: only ``"permutation"`` is ported.
+            scheme: ``"permutation"`` (default; kernel 1, equal to the
+                reference's values), ``"oph"`` or ``"cminhash"`` (tokens
+                hashed on the host, the scheme's torch ops on ``device``).
             out: ``"host"`` returns ``np.ndarray`` uint32; ``"device"``
                 returns the int32 (uint32 bits) tensor on ``device``
                 without a copy back.
@@ -413,32 +471,40 @@ class MinHash:
         """
         if out not in ("host", "device"):
             raise ValueError("out must be 'host' or 'device'")
-        _check_scheme(scheme)
         proto = cls(**minhash_kwargs)
+        perms = proto._custom_permutations()
+        _check_scheme(scheme, perms)
         docs = b if isinstance(b, list) else list(b)
         docs = [d if hasattr(d, "__len__") else list(d) for d in docs]
         n, p = len(docs), proto.num_perm
         if proto._device_mode == "disable":
             host = np.zeros((n, p), dtype=np.uint32)
-            for i, m in enumerate(cls.bulk(docs, **minhash_kwargs)):
+            for i, m in enumerate(cls.bulk(docs, scheme=scheme, **minhash_kwargs)):
                 host[i] = m.hashvalues
             return as_sig_tensor(host, resolve_device(device)) if out == "device" else host
         dev = resolve_device(device)
         result = torch.empty((n, p), dtype=torch.int32, device=dev)
-        perms = proto._custom_permutations()
         use_ids = proto.hashfunc is device_hash
         order = sorted(range(n), key=lambda i: len(docs[i]))
         for start, stop in _budget_chunks([len(docs[i]) for i in order]):
             idx = order[start:stop]
             chunk = [docs[i] for i in idx]
             lengths = np.fromiter(map(len, chunk), np.int32, count=len(chunk))
+            if scheme != "permutation":
+                # never the flat or ids paths: hashed on the host, padded
+                padded = _pad_flat(proto._hash_flat(chunk), lengths)
+                sigs = _alt_scheme_signatures(
+                    scheme, _upload(padded.view(np.int32), dev), _upload(lengths, dev),
+                    p, proto.seed,
+                )
+                result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
+                continue
             if use_ids:
                 flat = _upload(_id_tokens(chunk), dev)
             elif proto.hashfunc in _NATIVE_ALGO:
                 flat = _native_tokens(chunk, _NATIVE_ALGO[proto.hashfunc], dev)
             else:
-                hashed = [proto._hash_tokens(list(d)) for d in chunk]
-                flat = _upload(np.concatenate(hashed).view(np.int32), dev)
+                flat = _upload(proto._hash_flat(chunk).view(np.int32), dev)
             sigs = minhash_ops.compute_signatures_ragged(
                 flat, _upload(lengths, dev), proto.seed, p,
                 permutations=perms, mix=use_ids,
@@ -465,7 +531,9 @@ class MinHash:
         Args:
             texts: bytes or str (encoded as UTF-8) documents.
             k: shingle width in bytes.
-            scheme: only ``"permutation"`` is ported.
+            scheme: ``"permutation"`` (default), or ``"oph"`` /
+                ``"cminhash"`` with the SHA1 or XXH32 engine (the on-card
+                shingle hash signs by permutation only).
             out: ``"host"`` (uint32 numpy) or ``"device"`` (int32 tensor
                 on ``device``).
             device: ``"cuda"`` (default) or ``"cpu"`` (plain versions).
@@ -477,11 +545,12 @@ class MinHash:
         """
         if out not in ("host", "device"):
             raise ValueError("out must be 'host' or 'device'")
-        _check_scheme(scheme)
         if k <= 0:
             raise ValueError("k must be positive")
         dev = resolve_device(device)
         proto = cls(**minhash_kwargs)
+        perms = proto._custom_permutations()
+        _check_scheme(scheme, perms)
         if proto.hashfunc is not device_hash and proto.hashfunc not in _NATIVE_ALGO:
             raise ValueError(
                 "bulk_from_text hashes shingles natively and supports only the "
@@ -489,11 +558,14 @@ class MinHash:
                 "functions; shingle and hash with your callable and use "
                 "bulk_signatures instead"
             )
+        if proto.hashfunc is device_hash and scheme != "permutation":
+            raise ValueError(
+                "hashfunc='device' shingling supports only the default 'permutation' scheme"
+            )
         texts = texts if isinstance(texts, list) else list(texts)
         texts = [t.encode("utf-8") if isinstance(t, str) else t for t in texts]
         n, p = len(texts), proto.num_perm
         result = torch.empty((n, p), dtype=torch.int32, device=dev)
-        perms = proto._custom_permutations()
         order = sorted(range(n), key=lambda i: len(texts[i]))
         counts = [max(0, len(texts[i]) - k + 1) for i in order]
         for start, stop in _budget_chunks(counts):
@@ -510,8 +582,12 @@ class MinHash:
                 hashes, lengths = _native_shingles(
                     chunk, k, counts[stop - 1], _NATIVE_ALGO[proto.hashfunc], dev
                 )
-                sigs = minhash_ops.compute_signatures(
-                    hashes, _upload(lengths, dev), proto.seed, p, permutations=perms,
-                )
+                if scheme != "permutation":
+                    sigs = _alt_scheme_signatures(scheme, hashes, _upload(lengths, dev), p,
+                                                  proto.seed)
+                else:
+                    sigs = minhash_ops.compute_signatures(
+                        hashes, _upload(lengths, dev), proto.seed, p, permutations=perms,
+                    )
             result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
         return result if out == "device" else to_numpy_u32(result)

@@ -318,8 +318,9 @@ class TorchMinHashLSHForest:
         if self._sorted_fps is not None:
             out["device_bytes"] = int(sum(t.numel() * t.element_size() for t in (
                 self._sigs, self._sorted_fps, self._sorted_ids)))
-            max_run, _ = lsh_ops.bucket_stats(self._sorted_fps[:, self.k - 1, :])
-            out["max_leaf_run"] = int(max_run.max())
+            if self._n_real:
+                max_run, _ = lsh_ops.bucket_stats(self._sorted_fps[:, self.k - 1, :])
+                out["max_leaf_run"] = int(max_run.max())
         return out
 
     def save(self, path: str) -> None:

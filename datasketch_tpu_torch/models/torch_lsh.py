@@ -364,10 +364,11 @@ class TorchMinHashLSH:
                 sum(t.numel() * t.element_size()
                     for t in (self._sigs, self._sorted_fp, self._sorted_ids))
             )
-            max_run, n_distinct = lsh_ops.bucket_stats(self._sorted_fp)
-            stats = torch.stack([max_run.max(), n_distinct.min()]).cpu()
-            out["max_bucket"] = int(stats[0])
-            out["distinct_buckets_min"] = int(stats[1])
+            if self._n_real:  # a compacted empty table has no bucket to count
+                max_run, n_distinct = lsh_ops.bucket_stats(self._sorted_fp)
+                stats = torch.stack([max_run.max(), n_distinct.min()]).cpu()
+                out["max_bucket"] = int(stats[0])
+                out["distinct_buckets_min"] = int(stats[1])
         return out
 
     # ------------------------------------------------------------------ query

@@ -1,5 +1,5 @@
-"""Host token hashing (SHA1 low 32 / 64 bits, XXH32): the JAX package's C++
-extension, built for the port.
+"""Host token hashing (SHA1 low 32 / 64 bits, XXH32) and the fused HLL
+register scatter: the JAX package's C++ extension, built for the port.
 
 The source is compiled by path (``datasketch_tpu/native/src/
 dshash_module.cpp`` + ``dshash_core.h``) with the flags of
@@ -31,6 +31,7 @@ __all__ = [
     "hash_flat",
     "hash_ragged",
     "hash_shingles_padded",
+    "hll_scatter",
 ]
 
 # the extension's algorithm codes (``datasketch_tpu/native/corpus.py``)
@@ -155,3 +156,22 @@ def hash_shingles_padded(texts, k: int, out: np.ndarray, algo: int = ALGO_SHA1_3
     hashes = out.reshape(-1)[: n * t].reshape(n, t)
     load().hash_shingles(texts, hashes, t, k, algo, 0)
     return hashes, lengths
+
+
+def hll_scatter(regs: np.ndarray, hv: np.ndarray, lengths: np.ndarray, p: int,
+                max_rank: int) -> int:
+    """Fused HLL register scatter-max over a flat hashed corpus (the JAX
+    package's ``corpus.hll_scatter``): for doc d's hash h,
+    ``regs[d * 2**p + (h & (2**p - 1))]`` takes the max with
+    ``max_rank - bit_length(h >> p) + 1``.
+
+    Args:
+        regs: int8[n_docs * 2**p], flat, C-contiguous and writable.
+        hv: uint64 hashes, all docs back to back.
+        lengths: int64[n_docs] tokens per doc (they must sum to ``hv.size``).
+
+    Returns the least rank seen; callers raise the hash-overflow
+    ``ValueError`` when it is <= 0 (the registers may then be partly
+    written and must be discarded).
+    """
+    return load().hll_scatter(regs, hv, lengths, int(p), int(max_rank))

@@ -670,3 +670,62 @@ def test_update_batch_on_the_card_matches_host(dev):
     assert card == host
     bulk = MinHash.bulk([toks[:3000], toks[3000:]], num_perm=100, device=dev)
     assert LeanMinHash(MinHash.union(*bulk)) == LeanMinHash(host)
+
+
+@pytest.mark.parametrize("p", [4, 14])
+def test_hll_registers_on_the_card_match_cpu(dev, p):
+    from datasketch_tpu_torch import HyperLogLog, HyperLogLogPlusPlus
+    from datasketch_tpu_torch.ops import hll_ops
+
+    rng = np.random.RandomState(p)
+    docs = [rng.randint(0, 1 << 24, size=rng.randint(0, 700)).astype(np.uint32)
+            for _ in range(300)]
+    before = hll_ops.device_calls
+    for cls in (HyperLogLog, HyperLogLogPlusPlus):
+        kw = dict(p=p, hashfunc="device", device_mode="always")
+        card = cls.bulk_registers(docs, device=dev, **kw)
+        np.testing.assert_array_equal(card, cls.bulk_registers(docs, device="cpu", **kw))
+        np.testing.assert_array_equal(
+            card, cls.bulk_registers(docs, p=p, hashfunc="device", device_mode="disable"))
+    assert hll_ops.device_calls > before
+    regs = torch.from_numpy(card)
+    np.testing.assert_allclose(hll_ops.count_batch(regs.to(dev), p).cpu().numpy(),
+                               hll_ops.count_batch(regs, p).numpy(), rtol=1e-5)
+    toks = [b"u-%d" % i for i in range(1 << 15)]
+    for cls in (HyperLogLog, HyperLogLogPlusPlus):
+        on_card = cls(p=p, device_mode="always", device=dev)
+        on_card.update_batch(toks)
+        host = cls(p=p, device_mode="disable")
+        host.update_batch(toks)
+        assert on_card == host
+
+
+@pytest.mark.parametrize("scheme", ["oph", "cminhash"])
+def test_scheme_signatures_on_the_card_match_cpu(dev, scheme):
+    rng = np.random.RandomState(3)
+    docs = [[b"w%d" % x for x in rng.randint(0, 9000, size=rng.randint(0, 300))]
+            for _ in range(700)]
+    kw = dict(scheme=scheme, num_perm=129, seed=5)
+    card = MinHash.bulk_signatures(docs, out="device", device=dev, **kw)
+    assert card.device.type == "cuda"
+    np.testing.assert_array_equal(card.cpu().numpy().view(np.uint32),
+                                  MinHash.bulk_signatures(docs, device="cpu", **kw))
+    texts = [bytes(rng.randint(97, 123, size=n, dtype=np.uint8)) for n in (0, 5, 40, 900)]
+    np.testing.assert_array_equal(MinHash.bulk_from_text(texts, k=5, device=dev, **kw),
+                                  MinHash.bulk_from_text(texts, k=5, device="cpu", **kw))
+
+
+def test_bloom_words_on_the_card_match_cpu(dev, tmp_path):
+    from datasketch_tpu_torch import TorchMinHashLSHBloom
+
+    sigs = _sigs(dev, 5000, 128, 41)
+    pair = [TorchMinHashLSHBloom(threshold=0.8, n=20000, fp=0.01, device=d)
+            for d in (dev, "cpu")]
+    pair[0].insert_batch(sigs)
+    pair[1].insert_batch(sigs.cpu().numpy().view(np.uint32))
+    assert torch.equal(pair[0]._words.cpu(), pair[1]._words)
+    probe = torch.cat([sigs[:100], _sigs(dev, 100, 128, 42)])
+    np.testing.assert_array_equal(pair[0].query_batch(probe), pair[1].query_batch(probe))
+    pair[0].save(str(tmp_path / "bloom"))
+    back = TorchMinHashLSHBloom.load(str(tmp_path / "bloom"), device="cpu")
+    assert torch.equal(back._words, pair[1]._words)

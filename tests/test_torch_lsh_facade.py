@@ -152,6 +152,44 @@ def test_compact_is_empty_snapshot_and_warmup():
     fresh.warmup()  # no-op on an empty index
 
 
+def test_status_and_queries_on_a_compacted_empty_table():
+    """index two keys, remove both, compact: status() answers (0 rows, no
+    bucket), and the table still serves and takes inserts like JAX's."""
+    sigs = _corpus(1024, seed=13)
+    q = _queries(sigs, 6, 14)
+    pair = _pair(sigs[:2], threshold=0.5)
+    for ix in pair:
+        for key in (0, 1):
+            ix.remove(key)
+        ix.compact()
+    got, want = (ix.status() for ix in pair)
+    assert (got["n_live"], got["n_tombstoned"]) == (want["n_live"], want["n_tombstoned"]) == (0, 0)
+    assert got["max_bucket"] == got["distinct_buckets_min"] == 0
+    _same(pair, lambda ix: ix.top_k(q, 3))
+    _same(pair, lambda ix: ix.query_batch(q, return_scores=True))
+    for ix in pair:
+        ix.insert("late", sigs[5])
+    _same(pair, lambda ix: ix.top_k(q, 3))
+    _same(pair, lambda ix: ix.query_batch(sigs[5:6]))
+    assert pair[0].status()["n_live"] == pair[1].status()["n_live"] == 1
+    assert pair[0].status()["max_bucket"] == 1
+
+
+def test_forest_status_on_zero_rows():
+    """The forest's public calls never leave a 0-row table, but status()
+    guards the bucket count the same way."""
+    from datasketch_tpu_torch import TorchMinHashLSHForest
+    from datasketch_tpu_torch.ops import forest_ops
+
+    forest = TorchMinHashLSHForest(num_perm=P, device="cpu")
+    forest._sigs = torch.zeros((0, P), dtype=torch.int32)
+    forest._sorted_fps, forest._sorted_ids = forest_ops.build_forest(
+        forest_ops.prefix_fingerprints(forest._sigs, forest.l, forest.k)
+    )
+    assert forest.status()["max_leaf_run"] == 0
+    assert forest.status()["n_indexed"] == 0
+
+
 @pytest.mark.parametrize("nq", [1, 5, 8, 13])
 def test_query_b_matches_including_padding_rows(nq):
     sigs = _corpus(1024, seed=11)

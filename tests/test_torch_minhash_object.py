@@ -120,8 +120,8 @@ def test_bulk_and_generator_match(n_docs, doc_len):
     gen = list(MinHash.generator(iter(docs), num_perm=64, seed=2, device="cpu"))
     ref_gen = list(JaxMinHash.generator(iter(docs), num_perm=64, seed=2))
     assert [g.hashvalues.tolist() for g in gen] == [r.hashvalues.tolist() for r in ref_gen]
-    with pytest.raises(ValueError, match="permutation"):
-        list(MinHash.generator(docs, scheme="oph"))
+    with pytest.raises(ValueError, match="unknown signature scheme"):
+        list(MinHash.generator(docs, scheme="nope"))
 
 
 def test_pickle_round_trip():

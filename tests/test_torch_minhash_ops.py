@@ -130,6 +130,6 @@ def test_bulk_signatures_device_ids_match_jax(dtype):
 
 def test_bulk_signatures_rejects_unported_options():
     with pytest.raises(ValueError):
-        MinHash.bulk_signatures([[b"a"]], scheme="oph", device="cpu")
+        MinHash.bulk_signatures([[b"a"]], scheme="nope", device="cpu")
     with pytest.raises(ValueError):
         MinHash.bulk_signatures([[b"a"]], hashfunc="nope", device="cpu")

@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from datasketch_tpu_torch import (
+    HyperLogLog,
+    HyperLogLogPlusPlus,
     MinHash,
     TorchBBitIndex,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
+    TorchMinHashLSHBloom,
     TorchMinHashLSHForest,
     WeightedMinHashGenerator,
 )
@@ -32,6 +35,9 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "from datasketch_tpu_torch import native, hashfunc, device, persist",
         "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops, cws_ops",
         "from datasketch_tpu_torch.ops import bbit_ops, text_ops, forest_ops",
+        "from datasketch_tpu_torch.ops import hll_ops, oph, cminhash",
+        "from datasketch_tpu_torch.models import hyperloglog, lsh_bloom",
+        "from datasketch_tpu_torch import hyperloglog_const",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
         "from datasketch_tpu_torch.models import lean_minhash, lshforest, torch_forest",
         "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
@@ -71,6 +77,21 @@ def test_cuda_without_a_card_raises():
         TorchMinHashLSHForest()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MinHash(device_mode="always").update_batch([b"a", b"b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MinHash.bulk_signatures([[b"a", b"b"]], scheme="oph", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MinHash.bulk_signatures([[b"a", b"b"]], scheme="cminhash", device_mode="always",
+                                device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HyperLogLog(device_mode="always").update_batch([b"a", b"b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HyperLogLogPlusPlus(hashfunc="device", device_mode="always").update_batch([1, 2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HyperLogLogPlusPlus.bulk_registers([[b"a"]], device_mode="always")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HyperLogLogPlusPlus.bulk_registers([[1, 2]], hashfunc="device", device_mode="always")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchMinHashLSHBloom()
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

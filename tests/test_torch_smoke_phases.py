@@ -3,8 +3,9 @@
 The plain PyTorch versions stand in for the kernels, so a change that
 breaks the script's signatures -> index -> serving -> facade-parity checks,
 its ensemble phases, its weighted (CWS) phases, its b-bit phases, its text
-phase, its forest phases, the second facade phase or the MinHash-object
-phase fails here before it reaches a card.
+phase, its forest phases, the second facade phase, the MinHash-object
+phase, or the HyperLogLog, signature-scheme and LSHBloom phases fails here
+before it reaches a card.
 """
 
 import numpy as np
@@ -97,3 +98,25 @@ def test_smoke_forest_16k_facade2_and_minhash_phases_on_cpu():
     assert smoke.forest16["auto"][2] >= 0.9
     smoke.phase_facade2(f_sigs, f_q, n_queries=48, n_remove=20)
     smoke.phase_minhash_objects(n_docs=8)
+
+
+def test_smoke_hll_phase_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    smoke.phase_hll(n_bench=64, n_docs=512, n_stream=1 << 15, n_sample=64)
+    assert smoke.hll["bench"]["rel_err"] < 0.03
+    assert set(smoke.hll) >= {"bench", "device", "update_batch_tokens_per_s"}
+
+
+def test_smoke_schemes_phase_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    smoke.phase_schemes(n_sig=200, n_cpu=50, n_docs=1500, n_queries=40, n_parity=300)
+    for scheme in chip_smoke.SCHEMES:
+        assert smoke.schemes[scheme]["top_k scan"][1] >= 0.99
+
+
+def test_smoke_bloom_phase_on_cpu():
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    sigs = np.random.RandomState(1).randint(0, 1 << 32, (6000, chip_smoke.NUM_PERM),
+                                            dtype=np.uint64).astype(np.uint32)
+    smoke.phase_bloom(sigs, n=200_000, n_parity=2048, parity_n=20_000, expect=None)
+    assert smoke.bloom["fp_rate"] <= 0.09

@@ -122,7 +122,8 @@ def test_bulk_from_text_sha1_is_the_reference_formula():
 
 
 def test_bulk_from_text_argument_checks():
-    for kw in ({"out": "gpu"}, {"scheme": "oph"}, {"k": 0}, {"hashfunc": len}):
+    for kw in ({"out": "gpu"}, {"scheme": "nope"}, {"scheme": "oph", "hashfunc": "device"},
+               {"k": 0}, {"hashfunc": len}):
         with pytest.raises(ValueError):
             MinHash.bulk_from_text([b"abcdefghijk"], device="cpu", **kw)
 

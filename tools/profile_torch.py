@@ -6,9 +6,10 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 tools/profile_torch.py [CELL ...]
 
 CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
-``bbit-1m``, ``bbit-16m``, ``text-16k``, ``forest-1m`` (default: all, in
-that order; ``lsh-1m``, ``bbit-1m`` and ``forest-1m`` index the signatures
-of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
+``bbit-1m``, ``bbit-16m``, ``text-16k``, ``forest-1m``, ``hll``,
+``schemes``, ``bloom`` (default: all, in that order; ``lsh-1m``,
+``bbit-1m``, ``forest-1m`` and ``bloom`` index the signatures of
+``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
 ``torch.profiler`` (CPU and CUDA activity) over 3 calls after a warm one
 (builds: 1 call after a warm one):
@@ -34,7 +35,18 @@ of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 - forest-1m: the lsh-1m rows in a ``TorchMinHashLSHForest`` (num_perm 128,
   l 8, cap 64): the build, ``query_batch`` k = 10 of 1,024 planted queries
   by the walk (rank 'forest'; rank 'jaccard' with pool 512) and by the
-  scan, and the k = 256 scan.
+  scan, and the k = 256 scan;
+- hll: ``HyperLogLogPlusPlus.bulk_registers`` (p 14) of ``bench_hll``'s
+  2,048 docs x 512 tokens on the host, then of 65,536 docs x 512 ids on the
+  card; ``hll_ops.sketch_batch64_ids`` alone (the int8 scatter-max), the
+  same registers scattered into int32 and cast once, and ``count_batch``;
+- schemes: ``MinHash.bulk_signatures`` of sign-16k's corpus by the
+  permutation, OPH and C-MinHash schemes, ``index_tokens(scheme="oph")`` of
+  262,144 docs x 200 ids, ``top_k`` k = 10 by scan and bands of 1,024
+  queries;
+- bloom: a ``TorchMinHashLSHBloom`` sized for 100,000,000 keys:
+  ``insert_batch`` and ``query_batch`` of 262,144 lsh-1m rows, and
+  ``query_batch`` of 1,024, ``save`` and ``load``.
 
 Each step prints one JSON line: wall ms per call (host clock, synced),
 device ms per call (the union of the CUDA kernel and copy intervals), the
@@ -47,11 +59,12 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
-         "text-16k", "forest-1m")
+         "text-16k", "forest-1m", "hll", "schemes", "bloom")
 
 
 def device_time(prof):
@@ -290,6 +303,96 @@ def profile_forest(torch, chip_smoke, dev, real):
                                         rank="jaccard"))
 
 
+def profile_hll(torch, chip_smoke, dev):
+    import numpy as np
+
+    from datasketch_tpu_torch import HyperLogLogPlusPlus
+    from datasketch_tpu_torch.device import u32_values
+    from datasketch_tpu_torch.ops import hll_ops
+    from datasketch_tpu_torch.ops.hashing import mix64
+
+    p, t = chip_smoke.HLL_P, chip_smoke.HLL_TOKENS
+    docs = [[b"d%d-t%d" % (d, i) for i in range(t)] for d in range(chip_smoke.HLL_BENCH_DOCS)]
+    profiled(torch, "bulk_registers host %d docs x %d tokens" % (len(docs), t),
+             lambda: HyperLogLogPlusPlus.bulk_registers(docs, p=p))
+    n = chip_smoke.HLL_DOCS
+    ids = np.random.RandomState(23).randint(0, 1 << 24, size=(n, t)).astype(np.uint32)
+    profiled(torch, "bulk_registers device %d docs x %d ids" % (n, t),
+             lambda: HyperLogLogPlusPlus.bulk_registers(ids, p=p, hashfunc="device",
+                                                        device_mode="always", device=dev),
+             reps=1)
+    dev_ids = torch.from_numpy(ids.view("int32")).to(dev)
+    lens = torch.full((n,), t, dtype=torch.int32, device=dev)
+    regs = profiled(torch, "sketch_batch64_ids (int8 scatter-max)",
+                    lambda: hll_ops.sketch_batch64_ids(dev_ids, lens, p))
+
+    def int32_regs():
+        lo = u32_values(dev_ids)
+        hi, lo = mix64(torch.zeros_like(lo), lo)
+        idx, rank = hll_ops.ranks_and_indices64(hi, lo, p)
+        wide = torch.zeros((n, 1 << p), dtype=torch.int32, device=dev)
+        return wide.scatter_reduce_(1, idx, rank.to(torch.int32), "amax").to(torch.int8)
+
+    wide = profiled(torch, "the same into int32 registers, cast once", int32_regs)
+    print(json.dumps({"int32_equal": bool(torch.equal(wide, regs))}), flush=True)
+    del wide
+    profiled(torch, "count_batch %d rows" % n, lambda: hll_ops.count_batch(regs, p))
+
+
+def profile_schemes(torch, chip_smoke, dev):
+    import numpy as np
+
+    from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+
+    corpus = chip_smoke.make_corpus(chip_smoke.SIG_DOCS, seed=42)
+    p = chip_smoke.NUM_PERM
+    for scheme in ("permutation",) + chip_smoke.SCHEMES:
+        profiled(torch, "bulk_signatures %s %d docs" % (scheme, len(corpus)),
+                 lambda s=scheme: MinHash.bulk_signatures(corpus, scheme=s, num_perm=p,
+                                                          out="device", device=dev))
+    rng = np.random.RandomState(29)
+    n = chip_smoke.SCH_DOCS
+    ids = rng.randint(0, 1 << 20, size=(n, chip_smoke.TOKENS_PER_DOC)).astype(np.uint32)
+    src = rng.randint(0, n, size=chip_smoke.SCH_QUERIES)
+    q_ids = ids[src].copy()
+    swap = rng.rand(*q_ids.shape) < chip_smoke.SCH_REPLACE
+    q_ids[swap] = rng.randint(0, 1 << 20, size=int(swap.sum()))
+
+    def build_index():
+        index = TorchMinHashLSH(threshold=0.5, num_perm=p, device=dev)
+        index.index_tokens(range(n), ids, scheme="oph")
+        return index
+
+    index = profiled(torch, "index_tokens oph %d docs" % n, build_index, reps=1)
+    q_sigs = MinHash.bulk_signatures(q_ids, scheme="oph", num_perm=p, hashfunc="device",
+                                     out="device", device=dev)
+    for method in ("scan", "bands"):
+        rows = profiled(torch, "top_k k=%d %s (oph)" % (chip_smoke.TOP_K, method),
+                        lambda m=method: index.top_k(q_sigs, chip_smoke.TOP_K, method=m))
+        print(json.dumps({"recall": recall(src, rows)}), flush=True)
+
+
+def profile_bloom(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import TorchMinHashLSHBloom
+
+    sigs = chip_smoke.synth_index(chip_smoke.N_INDEX, real)[0]
+    batch = sigs[: chip_smoke.N_INDEX // chip_smoke.BLOOM_BATCHES]
+    bloom = TorchMinHashLSHBloom(threshold=chip_smoke.BLOOM_THRESHOLD,
+                                 num_perm=chip_smoke.NUM_PERM, n=chip_smoke.BLOOM_N,
+                                 fp=chip_smoke.BLOOM_FP, device=dev)
+    profiled(torch, "bloom insert_batch %d rows" % len(batch),
+             lambda: bloom.insert_batch(batch))
+    profiled(torch, "bloom query_batch %d rows" % len(batch), lambda: bloom.query_batch(batch))
+    q = sigs[-chip_smoke.N_QUERIES:]
+    profiled(torch, "bloom query_batch %d rows" % len(q), lambda: bloom.query_batch(q))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bloom")
+        profiled(torch, "bloom save (%d B of words)" % (bloom._words.numel() * 4),
+                 lambda: bloom.save(path), reps=1)
+        profiled(torch, "bloom load", lambda: TorchMinHashLSHBloom.load(path, device=dev),
+                 reps=1)
+
+
 def main() -> int:
     import torch
 
@@ -313,7 +416,7 @@ def main() -> int:
     smoke.phase_build()
     real = None
     for cell in CELLS:
-        needs_real = bool({"lsh-1m", "bbit-1m", "forest-1m"} & set(cells))
+        needs_real = bool({"lsh-1m", "bbit-1m", "forest-1m", "bloom"} & set(cells))
         if cell not in cells and not (cell == "sign-16k" and needs_real):
             continue
         print(json.dumps({"cell": cell}), flush=True)
@@ -331,6 +434,12 @@ def main() -> int:
             profile_bbit_16m(torch, chip_smoke, dev, smoke)
         elif cell == "forest-1m":
             profile_forest(torch, chip_smoke, dev, real)
+        elif cell == "hll":
+            profile_hll(torch, chip_smoke, dev)
+        elif cell == "schemes":
+            profile_schemes(torch, chip_smoke, dev)
+        elif cell == "bloom":
+            profile_bloom(torch, chip_smoke, dev, real)
         else:
             profile_text(torch, chip_smoke, dev)
         torch.cuda.empty_cache()
