@@ -3,7 +3,7 @@
 LSH Ensemble containment serving, weighted MinHash (CWS) serving, b-bit
 MinHash serving, the raw-text front ends, LSH Forest serving, the rest of
 the LSH facade, the per-object MinHash API, HyperLogLog, the OPH and
-C-MinHash schemes and LSHBloom.
+C-MinHash schemes, LSHBloom and HNSW.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -121,7 +121,27 @@ Phases (any failed check raises and the script exits non-zero):
     phase's 1,048,576 rows, inserted in 4 batches and all queried back,
     1,024 fresh signatures (hits <= b x fp), and a 65,536-row filter at n
     1,000,000 against a ``device="cpu"`` one word for word, saved on the
-    card and loaded on the card and on the CPU.
+    card and loaded on the card and on the CPU;
+21. hnsw-1m: 1,048,576 token sets of ``bench_hnsw``'s clustered law
+    (``benchmarks/utils.py::generate_sets``, drawn on the card, seed 41) in
+    a ``TorchHNSW(minhash_jaccard, m 16, ef 64)`` by ``index_tokens``
+    (kernel 1 signs, kernel 2 finds each node's 48 nearest rows), 1,024
+    corpus members queried by ``query_batch`` and ``query_stream`` (4
+    batches, depth 4), recall@10 against kernel 2's exact scan (floor 0.5,
+    a guard), with kernels 1 and 2's launches read around it; then the kNN
+    rows of 4,096 nodes against the plain distance tiles, 64 answers
+    against the same graph on the CPU, 2,048 adds and a flush (the append
+    path) and 1,000 removals;
+22. hnsw-16k: ``bench_hnsw``'s protocol (16,384 sets, 256-query batches)
+    on the card against a ``device="cpu"`` build (adjacency, levels, entry,
+    answers), ``HNSW.from_points`` of 2,048 points on the card against the
+    CPU, ``from_hnsw`` and a save / load round trip;
+23. hnsw-65k-l2: 65,536 x 128 float32 points in Gaussian clusters of 16
+    (seed 31) under ``l2`` (plain distance tiles), 1,024 queries, recall@10
+    against a float64 brute force; 8,192 integer-valued points built on the
+    card and on the CPU, equal;
+24. hnsw m 48: 8,192 signature rows whose 144 candidates a node take kernel
+    4's route (its launches read around it), equal to the plain tiles.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -197,6 +217,20 @@ BLOOM_BATCHES = 4
 BLOOM_FRESH = 1024
 BLOOM_PARITY_ROWS = 1 << 16
 BLOOM_PARITY_N = 1_000_000
+HNSW_SETS = 1 << 20  # bench_hnsw's clustered law at 1M sets
+HNSW_M, HNSW_EF = 16, 64
+HNSW_QUERIES = 1024
+HNSW_SAMPLE = 4096  # nodes whose kNN rows are held against the plain route
+HNSW_CPU_QUERIES = 64  # answers held against the same graph on the CPU
+HNSW_ADDS = 2048
+HNSW_REMOVES = 1000
+HNSW_RECALL_FLOOR = 0.5  # a guard against a broken graph, not a quality target
+HNSW16_SETS = 16384  # bench.py::bench_hnsw's protocol
+HNSW16_BATCH = 256
+HNSW_PTS = 2048  # HNSW.from_points on the card against the CPU
+L2_POINTS, L2_DIM, L2_CLUSTER = 65536, 128, 16
+L2_CPU_POINTS = 8192
+HNSW_M48_ROWS = 8192
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -280,6 +314,8 @@ FOREST16_PATH = ("topk_scan", "rerank")
 FACADE2_PATH = ("topk_scan", "rerank", "score_matrix")
 MINHASH_PATH = ("minhash_sign",)
 SCHEMES_PATH = ("minhash_sign", "topk_scan", "rerank")
+HNSW_PATH = ("minhash_sign", "topk_scan")
+HNSW_M48_PATH = ("score_matrix",)
 
 
 class SmokeFailure(RuntimeError):
@@ -2251,6 +2287,295 @@ class Smoke:
                self.bloom["queries_per_s"], BLOOM_FRESH, fp_rate, n_parity, parity_n, save_s,
                load_s, self.bloom["seconds"]))
 
+    # ---------------------------------------------------------------- HNSW
+
+    def hnsw_corpus(self, n_sets: int = HNSW_SETS, seed: int = 41):
+        """bench_hnsw's clustered token sets, drawn on the card
+        (:func:`clustered_sets`)."""
+        t0 = time.perf_counter()
+        docs = clustered_sets(self.torch, n_sets, self.device, seed)
+        log("[hnsw] corpus: %d clustered sets, %d ids in all (%.1f s)"
+            % (n_sets, sum(map(len, docs)), time.perf_counter() - t0))
+        return docs
+
+    def hnsw_recall(self, points, q_rows, rows) -> float:
+        """Recall@10 of ``rows`` (answers of the corpus rows ``q_rows``)
+        against kernel 2's exact scan of the same signatures: a hit is a
+        result whose equal-slot count reaches the exact 10th best."""
+        torch = self.torch
+        from datasketch_tpu_torch.kernels import lsh_scan
+
+        q = points[torch.as_tensor(q_rows, device=self.device)]
+        _, sc, _ = lsh_scan.topk_scan(points, q, TOP_K, points.shape[0])
+        c10 = torch.round(sc[:, -1].double() * points.shape[1]).long()
+        ids = torch.tensor([[k for k, _ in row] + [-1] * (TOP_K - len(row)) for row in rows],
+                           device=self.device)
+        got = (points[ids.clamp_min(0)] == q[:, None, :]).sum(-1)
+        hit = (got >= c10[:, None]) & (ids >= 0)
+        return float(hit.sum()) / (len(rows) * TOP_K)
+
+    def phase_hnsw(self, docs, n_queries: int = HNSW_QUERIES):
+        """hnsw-1m: ``TorchHNSW(minhash_jaccard, m 16, ef 64).index_tokens``
+        over the clustered sets (kernel 1 signs, kernel 2 finds each node's
+        48 nearest rows), then ``n_queries`` corpus members by
+        ``query_batch`` and by ``query_stream`` (4 batches, depth 4). The
+        launch counts are read around this phase."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchHNSW
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        index = TorchHNSW(distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF,
+                          device=self.device)
+        n = len(docs)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index_tokens(range(n), docs, num_perm=NUM_PERM)
+        self.sync()
+        self.hnsw = {"build_s": time.perf_counter() - t0}
+        g = index._graph
+        q_rows = np.random.RandomState(43).choice(n, n_queries, replace=False)
+        q = g.points[torch.as_tensor(q_rows, device=self.device)]
+        qps, rows = self.timed_qps(lambda: index.query_batch(q, TOP_K), n_queries)
+        batches = [q[i: i + n_queries // 4] for i in range(0, n_queries, n_queries // 4)]
+        stream = [r for b in index.query_stream(batches, TOP_K, depth=4) for r in b]
+        check(stream == rows, "hnsw-1m: query_stream answers otherwise than query_batch")
+        sqps, _ = self.timed_qps(
+            lambda: list(index.query_stream(batches, TOP_K, depth=4)), n_queries, reps=2)
+        self.hnsw.update(qps=qps, stream_qps=sqps, levels=1 + len(g.upper_nodes),
+                         upper_sizes=[int(u.shape[0]) for u in g.upper_nodes])
+        if cuda:
+            self.hnsw["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log("[hnsw-1m] index_tokens of %d sets: %.3f s, levels %d %s; query_batch of %d: "
+            "%.1f q/s; query_stream (4 x %d, depth 4): %.1f q/s; peak device memory %s B"
+            % (n, self.hnsw["build_s"], self.hnsw["levels"], self.hnsw["upper_sizes"],
+               n_queries, qps, n_queries // 4, sqps, self.hnsw.get("peak_bytes")))
+        return index, q_rows, rows
+
+    def phase_hnsw_checks(self, index, q_rows, rows, n_sample: int = HNSW_SAMPLE,
+                          n_cpu: int = HNSW_CPU_QUERIES, n_adds: int = HNSW_ADDS,
+                          n_removes: int = HNSW_REMOVES) -> None:
+        """hnsw-1m's checks: recall@10, the kNN rows of ``n_sample`` nodes
+        by the build's kernel route against the plain distance tiles on the
+        card, ``n_cpu`` answers against the same graph on the CPU; then
+        ``n_adds`` adds and a flush (the append path) and ``n_removes``
+        removals, and the queries again."""
+        torch = self.torch
+        from datasketch_tpu_torch.ops import hnsw_ops, knn_graph
+
+        g = index._graph
+        n = g.n
+        rec = self.hnsw_recall(g.points, q_rows, rows)
+        self.hnsw["recall"] = rec
+        log("[hnsw-1m] recall@10 against kernel 2's exact scan: %.4f" % rec)
+        check(rec >= HNSW_RECALL_FLOOR, "hnsw-1m recall %.4f < %.1f" % (rec, HNSW_RECALL_FLOOR))
+        sample = torch.as_tensor(np.random.RandomState(44).choice(n, n_sample, replace=False),
+                                 device=self.device)
+        kc = 3 * HNSW_M
+        route = knn_graph.knn_route(g.points, kc, "minhash_jaccard")
+        t0 = time.perf_counter()
+        want = knn_graph.knn_adjacency(g.points, kc, "minhash_jaccard", rows=sample,
+                                       route="tiles")
+        self.sync()
+        plain_s = time.perf_counter() - t0
+        got = knn_graph.knn_adjacency(g.points, kc, "minhash_jaccard", rows=sample)
+        check(torch.equal(got, want), "hnsw-1m: the %s route's kNN rows differ from the "
+              "plain tiles'" % route)
+        log("[hnsw-1m] kNN rows of %d nodes: the %s route equals the plain tiles (%.2f s)"
+            % (n_sample, route, plain_s))
+        dist = hnsw_ops.distance_fn("minhash_jaccard")
+        cpu_g = hnsw_ops.DeviceGraph(
+            points=g.points.cpu(), adj0=g.adj0.cpu(),
+            upper_nodes=[u.cpu() for u in g.upper_nodes],
+            upper_adj=[a.cpu() for a in g.upper_adj], entry=g.entry, keys=g.keys,
+            deleted=g.deleted.cpu())
+        qc = g.points[torch.as_tensor(q_rows[:n_cpu], device=self.device)]
+        want = hnsw_ops.search(cpu_g, qc.cpu(), dist, TOP_K, HNSW_EF, HNSW_EF)
+        got = hnsw_ops.search(g, qc, dist, TOP_K, HNSW_EF, HNSW_EF)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              "hnsw-1m: %d answers on the card differ from the same graph on the CPU" % n_cpu)
+        del cpu_g
+        log("[hnsw-1m] %d answers equal the same graph queried on the CPU" % n_cpu)
+
+        src = torch.as_tensor(np.random.RandomState(45).choice(n, n_adds, replace=False),
+                              device=self.device)
+        new = self.near_copies(g.points[src], 0.8, seed=46).cpu().numpy()
+        self.sync()
+        t0 = time.perf_counter()
+        for i in range(n_adds):
+            index.add(("new", i), new[i])
+        index.flush()
+        self.sync()
+        add_s = time.perf_counter() - t0
+        check(index.status()["appended_since_build"] == n_adds,
+              "hnsw-1m: the adds were not appended")
+        found = index.query_batch(new, 1)
+        hit = float(np.mean([bool(r) and r[0][0] == ("new", i) for i, r in enumerate(found)]))
+        gone = [int(k) for k in q_rows[:n_removes]]
+        t0 = time.perf_counter()
+        for key in gone:
+            index.remove(key)
+        self.sync()
+        remove_s = time.perf_counter() - t0
+        after = index.query_batch(g.points[torch.as_tensor(q_rows, device=self.device)], TOP_K)
+        dead = set(gone)
+        check(all(k not in dead for row in after for k, _ in row),
+              "hnsw-1m: a removed key came back")
+        self.hnsw.update(add_s=add_s, added_self_hit=hit, remove_s=remove_s)
+        log("[hnsw-1m] %d adds + flush (append path): %.3f s, %.4f find themselves first; "
+            "%d removals %.3f s; no removed key in %d answers"
+            % (n_adds, add_s, hit, n_removes, remove_s, len(after)))
+        check(hit >= HNSW_RECALL_FLOOR, "hnsw-1m: appended points find themselves at %.4f" % hit)
+
+    def phase_hnsw_16k(self, docs, batch: int = HNSW16_BATCH, n_pts: int = HNSW_PTS) -> None:
+        """hnsw-16k: ``bench_hnsw``'s protocol (16,384 clustered sets, m 16,
+        ef 64, ``batch``-query batches) on the card beside a
+        ``device="cpu"`` index over the same signatures: adjacency, levels,
+        entry and answers equal; then ``HNSW.from_points`` on the card
+        against the CPU at ``n_pts`` points, ``from_hnsw`` and a save / load
+        round trip."""
+        torch = self.torch
+        from datasketch_tpu_torch import HNSW, TorchHNSW
+
+        kw = dict(distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF)
+        index = TorchHNSW(device=self.device, **kw)
+        n = len(docs)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index_tokens(range(n), docs, num_perm=NUM_PERM)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        g = index._graph
+        q_rows = np.random.RandomState(47).choice(n, 4 * batch, replace=False)
+        q = g.points[torch.as_tensor(q_rows, device=self.device)]
+        batches = [q[i: i + batch] for i in range(0, 4 * batch, batch)]
+        qps, rows = self.timed_qps(lambda: index.query_batch(batches[0], TOP_K), batch)
+        sqps, _ = self.timed_qps(
+            lambda: list(index.query_stream(batches, TOP_K, depth=4)), 4 * batch, reps=2)
+        rec = self.hnsw_recall(g.points, q_rows[:batch], rows)
+        cpu = TorchHNSW(device="cpu", **kw)
+        t0 = time.perf_counter()
+        cpu.index(range(n), g.points.cpu())
+        cpu_s = time.perf_counter() - t0
+        c = cpu._graph
+        check(torch.equal(g.adj0.cpu(), c.adj0) and g.entry == c.entry
+              and len(g.upper_nodes) == len(c.upper_nodes)
+              and all(torch.equal(a.cpu(), b) for a, b in zip(g.upper_nodes, c.upper_nodes))
+              and all(torch.equal(a.cpu(), b) for a, b in zip(g.upper_adj, c.upper_adj)),
+              "hnsw-16k: the card's graph differs from the CPU's")
+        check(cpu.query_batch(batches[0].cpu(), TOP_K) == rows,
+              "hnsw-16k: the card's answers differ from the CPU's")
+        log("[hnsw-16k] %d sets: build %.3f s (device='cpu' %.1f s, equal graph and %d "
+            "answers); query_batch of %d %.1f q/s, query_stream (4 x %d, depth 4) %.1f q/s, "
+            "recall@10 %.4f" % (n, build_s, cpu_s, batch, batch, qps, batch, sqps, rec))
+        check(rec >= HNSW_RECALL_FLOOR, "hnsw-16k recall %.4f < %.1f" % (rec, HNSW_RECALL_FLOOR))
+        self.hnsw16 = {"build_s": build_s, "cpu_build_s": cpu_s, "qps": qps,
+                       "stream_qps": sqps, "recall": rec}
+
+        pts = g.points[:n_pts].cpu().numpy().view(np.uint32)
+        pair = [HNSW.from_points(pts, metric="minhash_jaccard", m=HNSW_M, device=d)
+                for d in (self.device, "cpu")]
+        check([lay._graph for lay in pair[0]._graphs] == [lay._graph for lay in pair[1]._graphs]
+              and pair[0]._entry_point == pair[1]._entry_point,
+              "hnsw-16k: HNSW.from_points on the card differs from the CPU")
+        snaps = [TorchHNSW.from_hnsw(h, distance_metric="minhash_jaccard", device=d)
+                 for h, d in zip(pair, (self.device, "cpu"))]
+        probe = pts[:batch]
+        check(snaps[0].query_batch(probe, TOP_K) == snaps[1].query_batch(probe, TOP_K),
+              "hnsw-16k: from_hnsw answers differ between the card and the CPU")
+        with tempfile.TemporaryDirectory() as tmp:
+            index.save(os.path.join(tmp, "hnsw"))
+            for d in (self.device, "cpu"):
+                back = TorchHNSW.load(os.path.join(tmp, "hnsw"), device=d)
+                check(back.query_batch(batches[0].to(back.device), TOP_K) == rows,
+                      "hnsw-16k: a checkpoint loaded on %s answers otherwise" % d)
+        log("[hnsw-16k] HNSW.from_points of %d points: the card's layers, edge distances and "
+            "entry equal the CPU's; from_hnsw answers alike; save / load on the card and the "
+            "CPU answer alike" % n_pts)
+
+    def phase_hnsw_l2(self, n: int = L2_POINTS, n_queries: int = HNSW_QUERIES,
+                      n_cpu: int = L2_CPU_POINTS) -> None:
+        """hnsw-65k-l2: ``n`` x 128 float32 points in Gaussian clusters of
+        16 (seed 31) under ``l2`` (the plain distance tiles), ``n_queries``
+        fresh points near the clusters, recall@10 against a float64 brute
+        force; then ``n_cpu`` integer-valued points built on the card and on
+        the CPU: equal graphs and answers."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchHNSW
+
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(31)
+        centers = torch.randn((n // L2_CLUSTER, L2_DIM), generator=gen, device=dev) * 4
+        pts = centers.repeat_interleave(L2_CLUSTER, 0) + torch.randn(
+            (n, L2_DIM), generator=gen, device=dev)
+        near = torch.randint(0, centers.shape[0], (n_queries,), generator=gen, device=dev)
+        q = centers[near] + torch.randn((n_queries, L2_DIM), generator=gen, device=dev)
+        index = TorchHNSW(distance_metric="l2", m=HNSW_M, ef=HNSW_EF, device=dev)
+        self.sync()
+        t0 = time.perf_counter()
+        index.index(range(n), pts)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        qps, rows = self.timed_qps(lambda: index.query_batch(q, TOP_K), n_queries)
+        p64, q64 = pts.double(), q.double()
+        exact = torch.cat([((p64[None] - q64[i: i + 16, None]) ** 2).sum(-1)
+                           for i in range(0, n_queries, 16)])
+        d10 = torch.sort(exact, dim=1).values[:, TOP_K - 1]
+        ids = torch.tensor([[k for k, _ in row] + [0] * (TOP_K - len(row)) for row in rows],
+                           device=dev)
+        lens = torch.tensor([len(row) for row in rows], device=dev)
+        ok = torch.arange(TOP_K, device=dev)[None, :] < lens[:, None]
+        rec = float(((exact.gather(1, ids) <= d10[:, None]) & ok).sum()) / (n_queries * TOP_K)
+        log("[hnsw-65k-l2] %d x %d points: build %.3f s (plain tiles), query_batch of %d "
+            "%.1f q/s, recall@10 against float64 %.4f" % (n, L2_DIM, build_s, n_queries, qps,
+                                                         rec))
+        check(rec >= HNSW_RECALL_FLOOR, "hnsw-65k-l2 recall %.4f < %.1f"
+              % (rec, HNSW_RECALL_FLOOR))
+        del index, exact, p64
+        ipts = torch.round(pts[:n_cpu]).cpu()
+        pair = [TorchHNSW(distance_metric="l2", m=HNSW_M, ef=HNSW_EF, device=d)
+                for d in (dev, "cpu")]
+        t0 = time.perf_counter()
+        pair[1].index(range(n_cpu), ipts)
+        cpu_s = time.perf_counter() - t0
+        pair[0].index(range(n_cpu), ipts.to(dev))
+        a, b = pair[0]._graph, pair[1]._graph
+        check(torch.equal(a.adj0.cpu(), b.adj0) and a.entry == b.entry
+              and all(torch.equal(x.cpu(), y) for x, y in zip(a.upper_adj, b.upper_adj)),
+              "hnsw-65k-l2: the card's integer-valued graph differs from the CPU's")
+        iq = torch.round(q[:64]).cpu()
+        check(pair[0].query_batch(iq.to(dev), TOP_K) == pair[1].query_batch(iq, TOP_K),
+              "hnsw-65k-l2: the card's answers differ from the CPU's")
+        self.hnsw_l2 = {"build_s": build_s, "qps": qps, "recall": rec, "cpu_build_s": cpu_s}
+        log("[hnsw-65k-l2] %d integer-valued points: the card's graph and 64 answers equal "
+            "the CPU's (CPU build %.1f s)" % (n_cpu, cpu_s))
+
+    def phase_hnsw_m48(self, sigs, n: int = HNSW_M48_ROWS) -> None:
+        """A build at m 48 on ``n`` signature rows: 144 candidates per node
+        take kernel 4's route (its launches are read around this phase);
+        its kNN rows equal the plain tiles'."""
+        torch = self.torch
+        from datasketch_tpu_torch import TorchHNSW
+        from datasketch_tpu_torch.ops import knn_graph
+
+        pts = sigs[:n]
+        self.sync()
+        t0 = time.perf_counter()
+        index = TorchHNSW(distance_metric="minhash_jaccard", m=48, ef=HNSW_EF,
+                          device=self.device)
+        index.index(range(n), pts)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        check(knn_graph.knn_route(pts, 144, "minhash_jaccard") == "score",
+              "the m 48 build did not take kernel 4's route")
+        got = knn_graph.knn_adjacency(pts, 144, "minhash_jaccard")
+        want = knn_graph.knn_adjacency(pts, 144, "minhash_jaccard", route="tiles")
+        check(torch.equal(got, want), "m 48: kernel 4's kNN rows differ from the plain tiles'")
+        self.hnsw_m48 = {"build_s": build_s}
+        log("[hnsw-m48] %d rows at m 48: build %.3f s; kernel 4's kNN rows equal the plain "
+            "tiles'" % (n, build_s))
+
     def timed_qps(self, fn, n_queries: int, reps: int = 3):
         """(best q/s over ``reps`` synced calls after a warm one, the last
         answer)."""
@@ -2465,6 +2790,54 @@ def make_token_sets(torch, n_sets: int, device, seed: int, vocab: int = 50000,
     u = torch.rand(int(lengths.sum()), generator=g, device=device, dtype=torch.float64)
     ids = torch.searchsorted(cum, u).clamp_max(vocab - 1).to(torch.int32).cpu().numpy()
     return np.split(ids, np.cumsum(lengths.cpu().numpy())[:-1])
+
+
+def clustered_sets(torch, n_sets: int, device, seed: int, vocab: int = 50000,
+                   mean_size: int = 190, cluster: int = 20):
+    """``benchmarks/utils.py::generate_sets``' law, vectorized and drawn on
+    ``device``: clusters of ``cluster`` sets, each a base set (lognormal
+    size around ``mean_size``, at least 8 draws, its distinct Zipf(0.8) ids
+    over ``vocab``) and members that keep a U(0.45, 0.98) share of the base
+    and add max(1, int(base size x U(0.02, 0.35))) fresh Zipf ids, in a
+    random order. Host int32 arrays, one per set; a member's ids may repeat
+    (MinHash reads the set)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = torch.float64
+    w = torch.arange(1, vocab + 1, device=device, dtype=f64) ** -0.8
+    cum = torch.cumsum(w / w.sum(), 0)
+
+    def zipf(k):
+        u = torch.rand(k, generator=g, device=device, dtype=f64)
+        return torch.searchsorted(cum, u).clamp_max(vocab - 1)
+
+    def uniform(k, lo, hi):
+        return lo + (hi - lo) * torch.rand(k, generator=g, device=device, dtype=f64)
+
+    n_cl = -(-n_sets // cluster)
+    draws = torch.empty(n_cl, device=device, dtype=f64).log_normal_(
+        math.log(mean_size), 0.5, generator=g).long().clamp_min(8)
+    seg = torch.repeat_interleave(torch.arange(n_cl, device=device), draws)
+    key = torch.unique(seg * vocab + zipf(int(draws.sum())))  # distinct ids per cluster
+    base = key % vocab
+    bsize = torch.bincount(key // vocab, minlength=n_cl)
+    bstart = torch.cumsum(bsize, 0) - bsize
+    sets = torch.arange(n_sets, device=device)
+    cl = sets // cluster
+    is_base = sets % cluster == 0
+    n_base = bsize[cl]
+    owner = torch.repeat_interleave(sets, n_base)
+    pos = torch.arange(owner.shape[0], device=device) - (torch.cumsum(n_base, 0) - n_base)[owner]
+    tok = base[bstart[cl][owner] + pos]
+    keep_rate = torch.where(is_base, 1.0, uniform(n_sets, 0.45, 0.98))
+    kept = torch.rand(owner.shape[0], generator=g, device=device, dtype=f64) < keep_rate[owner]
+    n_extra = torch.where(is_base, 0, (n_base * uniform(n_sets, 0.02, 0.35)).long().clamp_min(1))
+    all_owner = torch.cat([owner[kept], torch.repeat_interleave(sets, n_extra)])
+    all_tok = torch.cat([tok[kept], zipf(int(n_extra.sum()))])
+    order = torch.argsort(all_owner, stable=True)
+    ids = all_tok[order].to(torch.int32).cpu().numpy()
+    docs = np.split(ids, np.cumsum(torch.bincount(all_owner, minlength=n_sets).cpu().numpy())[:-1])
+    perm = torch.randperm(n_sets, generator=g, device=device).cpu().numpy()
+    return [docs[i] for i in perm]
 
 
 def make_corpus(n_docs: int, seed: int = 42):
@@ -2720,8 +3093,54 @@ def main() -> int:
         for kname in SCHEMES_PATH:
             check(sch_counts[kname] > 0, "kernel %s was not launched on the schemes path"
                   % kname)
+        t_hnsw = time.perf_counter()
+        docs = smoke.hnsw_corpus()
+        zero_counts()
+        hnsw, hq, hrows = smoke.phase_hnsw(docs)
+        torch.cuda.synchronize()
+        hnsw_counts = counts()
+        del docs
+        smoke.phase_hnsw_checks(hnsw, hq, hrows)
+        del hnsw
+        torch.cuda.empty_cache()
+        log("[hnsw-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw)))
+        log("[launches] hnsw-1m path: %s" % json.dumps(hnsw_counts))
+        for kname in HNSW_PATH:
+            check(hnsw_counts[kname] > 0, "kernel %s was not launched on the hnsw-1m path"
+                  % kname)
+        docs16 = smoke.hnsw_corpus(HNSW16_SETS)
+        zero_counts()
+        smoke.phase_hnsw_16k(docs16)
+        torch.cuda.synchronize()
+        h16_counts = counts()
+        log("[hnsw-16k] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw16)))
+        log("[launches] hnsw-16k path: %s" % json.dumps(h16_counts))
+        zero_counts()
+        smoke.phase_hnsw_l2()
+        torch.cuda.synchronize()
+        l2_counts = counts()
+        log("[hnsw-65k-l2] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw_l2)))
+        log("[launches] hnsw-65k-l2 path (plain tiles, no kernel expected): %s"
+            % json.dumps(l2_counts))
+        from datasketch_tpu_torch import MinHash
+
+        m48_sigs = MinHash.bulk_signatures(docs16[:HNSW_M48_ROWS], num_perm=NUM_PERM,
+                                           hashfunc="device", out="device", device=smoke.device)
+        zero_counts()
+        smoke.phase_hnsw_m48(m48_sigs)
+        torch.cuda.synchronize()
+        m48_counts = counts()
+        log("[hnsw-m48] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw_m48)))
+        log("[launches] hnsw m 48 path: %s" % json.dumps(m48_counts))
+        for label, got, path in (("hnsw-16k", h16_counts, HNSW_PATH),
+                                 ("hnsw m 48", m48_counts, HNSW_M48_PATH)):
+            for kname in path:
+                check(got[kname] > 0, "kernel %s was not launched on the %s path"
+                      % (kname, label))
+        log("[hnsw] the four HNSW phases: %.1f s" % (time.perf_counter() - t_hnsw))
         paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
-                 forest_counts, f16_counts, facade2_counts, mh_counts, sch_counts)
+                 forest_counts, f16_counts, facade2_counts, mh_counts, sch_counts,
+                 hnsw_counts, h16_counts, l2_counts, m48_counts)
         launches = {name: sum(c[name] for c in paths) for name in lsh_counts}
         report = []
         for k in KERNELS:

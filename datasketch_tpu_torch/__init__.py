@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of datasketch_tpu's MinHash -> LSH, LSH Ensemble,
 LSH Forest, LSHBloom, weighted MinHash (CWS) and b-bit MinHash serving
 paths, with the raw-text and token-id front ends, the OPH and C-MinHash
-signature schemes, the per-object MinHash / LeanMinHash sketches and the
-HyperLogLog / HyperLogLog++ cardinality sketches.
+signature schemes, the per-object MinHash / LeanMinHash sketches, the
+HyperLogLog / HyperLogLog++ cardinality sketches and HNSW (the device-built
+graph served by ``TorchHNSW``, and the mutable host ``HNSW``).
 
 The JAX package (``datasketch_tpu``) is the reference this package is held
 against; this one imports ``torch`` and numpy only, never JAX and never
@@ -24,6 +25,7 @@ from datasketch_tpu_torch.hashfunc import (
     xxhash_hash32,
 )
 from datasketch_tpu_torch.models.b_bit_minhash import bBitMinHash
+from datasketch_tpu_torch.models.hnsw import HNSW
 from datasketch_tpu_torch.models.hyperloglog import HyperLogLog, HyperLogLogPlusPlus
 from datasketch_tpu_torch.models.lean_minhash import LeanMinHash
 from datasketch_tpu_torch.models.lsh_bloom import MinHashLSHBloom, TorchMinHashLSHBloom
@@ -32,6 +34,7 @@ from datasketch_tpu_torch.models.minhash import MinHash
 from datasketch_tpu_torch.models.torch_bbit import TorchBBitIndex
 from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
 from datasketch_tpu_torch.models.torch_forest import TorchMinHashLSHForest
+from datasketch_tpu_torch.models.torch_hnsw import TorchHNSW
 from datasketch_tpu_torch.models.torch_lsh import TorchMinHashLSH
 from datasketch_tpu_torch.models.weighted_minhash import (
     WeightedMinHash,
@@ -43,6 +46,7 @@ WeightedMinHashLSHForest = MinHashLSHForest  # the reference's alias
 __all__ = [
     "bBitMinHash",
     "device_hash",
+    "HNSW",
     "HyperLogLog",
     "HyperLogLogPlusPlus",
     "LeanMinHash",
@@ -52,6 +56,7 @@ __all__ = [
     "sha1_hash32",
     "sha1_hash64",
     "TorchBBitIndex",
+    "TorchHNSW",
     "TorchMinHashLSH",
     "TorchMinHashLSHBloom",
     "TorchMinHashLSHEnsemble",

@@ -28,7 +28,7 @@ def eq_counts_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     step = max(1, _PLAIN_ELEMS // max(1, nq * p))
     for r0 in range(0, nt, step):
         r1 = min(nt, r0 + step)
-        out[:, r0:r1] = (q[:, None, :] == db[None, r0:r1, :]).sum(dim=-1)
+        out[:, r0:r1] = (q[:, None, :] == db[None, r0:r1, :]).sum(dim=-1, dtype=torch.int32)
     return out
 
 

@@ -729,3 +729,64 @@ def test_bloom_words_on_the_card_match_cpu(dev, tmp_path):
     pair[0].save(str(tmp_path / "bloom"))
     back = TorchMinHashLSHBloom.load(str(tmp_path / "bloom"), device="cpu")
     assert torch.equal(back._words, pair[1]._words)
+
+
+@pytest.mark.parametrize("p", [66, 128])
+@pytest.mark.parametrize("k", [5, 47, 127])
+def test_knn_scan_route_matches_plain_tiles(dev, p, k):
+    """The HNSW build's kNN rows through kernel 2 (k + 1 <= 128) against
+    the plain distance tiles, with 160 copies of one row (its own id falls
+    out of the scan's k + 1)."""
+    from datasketch_tpu_torch.ops import knn_graph
+
+    pts = _sigs(dev, 3000, p, 1000 + p + k, values=3)
+    pts[40:200] = pts[7]
+    assert knn_graph.knn_route(pts, k, "minhash_jaccard") == "scan"
+    before = lsh_scan.launches
+    got = knn_graph.knn_adjacency(pts, k, "minhash_jaccard")
+    assert lsh_scan.launches > before
+    assert torch.equal(got, knn_graph.knn_adjacency(pts, k, "minhash_jaccard", route="tiles"))
+
+
+@pytest.mark.parametrize("p", [66, 128, 512])
+def test_knn_score_route_matches_plain_tiles(dev, p):
+    """The kNN rows through kernel 4 (k + 1 > 128, or P > 256)."""
+    from datasketch_tpu_torch.ops import knn_graph
+
+    pts = _sigs(dev, 2000, p, 2000 + p, values=3)
+    pts[40:200] = pts[7]
+    for k in (150,) if p <= 256 else (16, 150):
+        assert knn_graph.knn_route(pts, k, "minhash_jaccard") == "score"
+        before = score.launches
+        got = knn_graph.knn_adjacency(pts, k, "minhash_jaccard")
+        assert score.launches > before
+        assert torch.equal(got, knn_graph.knn_adjacency(pts, k, "minhash_jaccard",
+                                                        route="tiles"))
+
+
+@pytest.mark.parametrize("metric", ["minhash_jaccard", "l2"])
+def test_torch_hnsw_on_the_card_matches_the_cpu(dev, metric):
+    """A CUDA TorchHNSW against a device="cpu" one: the built graph, an
+    append with overflow re-prunes, removals and the answers."""
+    from datasketch_tpu_torch import TorchHNSW
+
+    rng = np.random.RandomState(5)
+    if metric == "minhash_jaccard":
+        pts = rng.randint(0, 4, (2000, 66)).astype(np.uint32)
+    else:
+        pts = rng.randint(-8, 9, (2000, 32)).astype(np.float32)
+    new = pts[rng.randint(0, 8, 200)].copy()
+    pair = [TorchHNSW(distance_metric=metric, m=8, ef=32, device=d) for d in (dev, "cpu")]
+    for ix in pair:
+        ix.index(range(2000), pts)
+        for i in range(200):
+            ix.add(5000 + i, new[i])
+        ix.flush()
+        for key in range(0, 2000, 9):
+            ix.remove(key)
+    a, b = pair[0]._graph, pair[1]._graph
+    assert pair[0].status()["appended_since_build"] == 200
+    assert torch.equal(a.adj0.cpu(), b.adj0) and a.entry == b.entry
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(a.upper_adj, b.upper_adj))
+    q = np.concatenate([pts[:64], new[:64]])
+    assert pair[0].query_batch(q, 10) == pair[1].query_batch(q, 10)

@@ -6,14 +6,17 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from datasketch_tpu_torch import (
+    HNSW,
     HyperLogLog,
     HyperLogLogPlusPlus,
     MinHash,
     TorchBBitIndex,
+    TorchHNSW,
     TorchMinHashLSH,
     TorchMinHashLSHEnsemble,
     TorchMinHashLSHBloom,
@@ -21,6 +24,7 @@ from datasketch_tpu_torch import (
     WeightedMinHashGenerator,
 )
 from datasketch_tpu_torch.device import resolve_device
+from datasketch_tpu_torch.ops import knn_graph
 from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
 
 torch.set_num_threads(2)
@@ -35,13 +39,14 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "from datasketch_tpu_torch import native, hashfunc, device, persist",
         "from datasketch_tpu_torch.ops import hashing, minhash_ops, lsh_ops, cws_ops",
         "from datasketch_tpu_torch.ops import bbit_ops, text_ops, forest_ops",
-        "from datasketch_tpu_torch.ops import hll_ops, oph, cminhash",
+        "from datasketch_tpu_torch.ops import hll_ops, oph, cminhash, hnsw_ops, knn_graph",
         "from datasketch_tpu_torch.models import hyperloglog, lsh_bloom",
         "from datasketch_tpu_torch import hyperloglog_const",
         "from datasketch_tpu_torch.models import minhash, lsh_params, torch_lsh",
         "from datasketch_tpu_torch.models import lean_minhash, lshforest, torch_forest",
         "from datasketch_tpu_torch.models import lshensemble, torch_ensemble",
         "from datasketch_tpu_torch.models import weighted_minhash, b_bit_minhash, torch_bbit",
+        "from datasketch_tpu_torch.models import hnsw, torch_hnsw",
         "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
         "from datasketch_tpu_torch.kernels import bbit, score",
         "from datasketch_tpu_torch.utils import pipeline, profiling",
@@ -92,6 +97,14 @@ def test_cuda_without_a_card_raises():
         HyperLogLogPlusPlus.bulk_registers([[1, 2]], hashfunc="device", device_mode="always")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchMinHashLSHBloom()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchHNSW()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        knn_graph.build_nsw_graph(np.zeros((3, 4), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        knn_graph.knn_adjacency(np.zeros((3, 4), np.float32), k=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HNSW.from_points(np.zeros((3, 4), np.float32))
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

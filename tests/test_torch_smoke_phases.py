@@ -4,8 +4,8 @@ The plain PyTorch versions stand in for the kernels, so a change that
 breaks the script's signatures -> index -> serving -> facade-parity checks,
 its ensemble phases, its weighted (CWS) phases, its b-bit phases, its text
 phase, its forest phases, the second facade phase, the MinHash-object
-phase, or the HyperLogLog, signature-scheme and LSHBloom phases fails here
-before it reaches a card.
+phase, the HyperLogLog, signature-scheme and LSHBloom phases, or the HNSW
+phases fails here before it reaches a card.
 """
 
 import numpy as np
@@ -120,3 +120,23 @@ def test_smoke_bloom_phase_on_cpu():
                                             dtype=np.uint64).astype(np.uint32)
     smoke.phase_bloom(sigs, n=200_000, n_parity=2048, parity_n=20_000, expect=None)
     assert smoke.bloom["fp_rate"] <= 0.09
+
+
+def test_smoke_hnsw_phases_on_cpu():
+    from datasketch_tpu_torch import MinHash
+
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    docs = smoke.hnsw_corpus(n_sets=1500)
+    assert len(docs) == 1500 and min(map(len, docs)) >= 1
+    index, q_rows, rows = smoke.phase_hnsw(docs, n_queries=64)
+    assert smoke.hnsw["levels"] == 2
+    smoke.phase_hnsw_checks(index, q_rows, rows, n_sample=64, n_cpu=16, n_adds=100,
+                            n_removes=30)
+    assert smoke.hnsw["recall"] >= chip_smoke.HNSW_RECALL_FLOOR
+    docs16 = smoke.hnsw_corpus(n_sets=400)
+    smoke.phase_hnsw_16k(docs16, batch=32, n_pts=300)
+    smoke.phase_hnsw_l2(n=1024, n_queries=64, n_cpu=300)
+    assert smoke.hnsw_l2["recall"] >= chip_smoke.HNSW_RECALL_FLOOR
+    sigs = MinHash.bulk_signatures(docs16[:300], num_perm=chip_smoke.NUM_PERM,
+                                   hashfunc="device", out="device", device="cpu")
+    smoke.phase_hnsw_m48(sigs, n=300)

@@ -7,7 +7,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
 CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
 ``bbit-1m``, ``bbit-16m``, ``text-16k``, ``forest-1m``, ``hll``,
-``schemes``, ``bloom`` (default: all, in that order; ``lsh-1m``,
+``schemes``, ``bloom``, ``hnsw`` (default: all, in that order; ``lsh-1m``,
 ``bbit-1m``, ``forest-1m`` and ``bloom`` index the signatures of
 ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
@@ -46,7 +46,13 @@ CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
   queries;
 - bloom: a ``TorchMinHashLSHBloom`` sized for 100,000,000 keys:
   ``insert_batch`` and ``query_batch`` of 262,144 lsh-1m rows, and
-  ``query_batch`` of 1,024, ``save`` and ``load``.
+  ``query_batch`` of 1,024, ``save`` and ``load``;
+- hnsw: hnsw-1m's 1,048,576 clustered sets (``chip_smoke.clustered_sets``):
+  their signatures, the kNN rows (kernel 2), the diversity pruning, the
+  whole ``TorchHNSW.index`` build, ``query_batch`` k = 10 of 1,024 corpus
+  members and ``query_stream`` (4 x 256, depth 4), an append of 2,048 adds;
+  hnsw-16k's build and 256-query batch; hnsw-65k-l2's build (plain tiles)
+  and 1,024-query batch.
 
 Each step prints one JSON line: wall ms per call (host clock, synced),
 device ms per call (the union of the CUDA kernel and copy intervals), the
@@ -64,7 +70,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
-         "text-16k", "forest-1m", "hll", "schemes", "bloom")
+         "text-16k", "forest-1m", "hll", "schemes", "bloom", "hnsw")
 
 
 def device_time(prof):
@@ -393,6 +399,77 @@ def profile_bloom(torch, chip_smoke, dev, real):
                  reps=1)
 
 
+def profile_hnsw(torch, chip_smoke, dev):
+    import numpy as np
+
+    from datasketch_tpu_torch import MinHash, TorchHNSW
+    from datasketch_tpu_torch.ops import hnsw_ops, knn_graph
+
+    m, ef, k = chip_smoke.HNSW_M, chip_smoke.HNSW_EF, chip_smoke.TOP_K
+    docs = chip_smoke.clustered_sets(torch, chip_smoke.HNSW_SETS, dev, 41)
+    n = len(docs)
+    sigs = profiled(torch, "hnsw-1m signatures of %d sets" % n,
+                    lambda: MinHash.bulk_signatures(docs, num_perm=chip_smoke.NUM_PERM,
+                                                    hashfunc="device", out="device",
+                                                    device=dev), reps=1)
+    del docs
+    dist = hnsw_ops.distance_fn("minhash_jaccard")
+    cands = profiled(torch, "hnsw-1m kNN rows k=%d (%s route)"
+                     % (3 * m, knn_graph.knn_route(sigs, 3 * m, "minhash_jaccard")),
+                     lambda: knn_graph.knn_adjacency(sigs, 3 * m, "minhash_jaccard"), reps=1)
+    profiled(torch, "hnsw-1m diversity pruning to m=%d" % m,
+             lambda: knn_graph._prune_diverse(sigs, cands, m, 256, dist), reps=1)
+    del cands
+
+    def build(metric, pts):
+        index = TorchHNSW(distance_metric=metric, m=m, ef=ef, device=dev)
+        index.index(range(pts.shape[0]), pts)
+        return index
+
+    index = profiled(torch, "hnsw-1m TorchHNSW.index", lambda: build("minhash_jaccard", sigs),
+                     reps=1)
+    q = sigs[torch.as_tensor(np.random.RandomState(43).choice(n, chip_smoke.HNSW_QUERIES,
+                                                              replace=False), device=dev)]
+    profiled(torch, "hnsw-1m query_batch k=%d of %d" % (k, q.shape[0]),
+             lambda: index.query_batch(q, k))
+    batches = [q[i: i + q.shape[0] // 4] for i in range(0, q.shape[0], q.shape[0] // 4)]
+    profiled(torch, "hnsw-1m query_stream 4 x %d depth 4" % batches[0].shape[0],
+             lambda: list(index.query_stream(batches, k, depth=4)))
+    new = chip_smoke.Smoke(torch, dev).near_copies(
+        sigs[:chip_smoke.HNSW_ADDS], 0.8, seed=46).cpu().numpy()
+    calls = [0]
+
+    def append():
+        calls[0] += 1
+        for i in range(new.shape[0]):
+            index.add((calls[0], i), new[i])
+        index.flush()
+
+    profiled(torch, "hnsw-1m %d adds + flush (append path)" % new.shape[0], append, reps=1)
+    del index, sigs
+    torch.cuda.empty_cache()
+
+    docs = chip_smoke.clustered_sets(torch, chip_smoke.HNSW16_SETS, dev, 41)
+    sigs = MinHash.bulk_signatures(docs, num_perm=chip_smoke.NUM_PERM, hashfunc="device",
+                                   out="device", device=dev)
+    index = profiled(torch, "hnsw-16k TorchHNSW.index", lambda: build("minhash_jaccard", sigs),
+                     reps=1)
+    q = sigs[: chip_smoke.HNSW16_BATCH]
+    profiled(torch, "hnsw-16k query_batch k=%d of %d" % (k, q.shape[0]),
+             lambda: index.query_batch(q, k))
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n, d, c = chip_smoke.L2_POINTS, chip_smoke.L2_DIM, chip_smoke.L2_CLUSTER
+    centers = torch.randn((n // c, d), generator=gen, device=dev) * 4
+    pts = centers.repeat_interleave(c, 0) + torch.randn((n, d), generator=gen, device=dev)
+    index = profiled(torch, "hnsw-65k-l2 TorchHNSW.index (plain tiles)",
+                     lambda: build("l2", pts), reps=1)
+    q = pts[: chip_smoke.HNSW_QUERIES] + torch.randn((chip_smoke.HNSW_QUERIES, d),
+                                                     generator=gen, device=dev)
+    profiled(torch, "hnsw-65k-l2 query_batch k=%d of %d" % (k, q.shape[0]),
+             lambda: index.query_batch(q, k))
+
+
 def main() -> int:
     import torch
 
@@ -440,6 +517,8 @@ def main() -> int:
             profile_schemes(torch, chip_smoke, dev)
         elif cell == "bloom":
             profile_bloom(torch, chip_smoke, dev, real)
+        elif cell == "hnsw":
+            profile_hnsw(torch, chip_smoke, dev)
         else:
             profile_text(torch, chip_smoke, dev)
         torch.cuda.empty_cache()
