@@ -127,21 +127,25 @@ Phases (any failed check raises and the script exits non-zero):
     a ``TorchHNSW(minhash_jaccard, m 16, ef 64)`` by ``index_tokens``
     (kernel 1 signs, kernel 2 finds each node's 48 nearest rows), 1,024
     corpus members queried by ``query_batch`` and ``query_stream`` (4
-    batches, depth 4), recall@10 against kernel 2's exact scan (floor 0.5,
-    a guard), with kernels 1 and 2's launches read around it; then the kNN
-    rows of 4,096 nodes against the plain distance tiles, 64 answers
-    against the same graph on the CPU, 2,048 adds and a flush (the append
-    path) and 1,000 removals;
-22. hnsw-16k: ``bench_hnsw``'s protocol (16,384 sets, 256-query batches)
-    on the card against a ``device="cpu"`` build (adjacency, levels, entry,
-    answers), ``HNSW.from_points`` of 2,048 points on the card against the
-    CPU, ``from_hnsw`` and a save / load round trip;
+    batches, depth 4), with kernels 1 and 2's launches read around the build
+    and the queries alone; then recall@10 against kernel 2's exact scan
+    (floor 0.5, a guard), the signatures of 4,096 sampled sets against the
+    plain signer on the CPU and their kNN rows against the plain distance
+    tiles, 64 answers against the same graph on the CPU, 2,048 adds and a
+    flush (the append path) and 1,000 removals;
+22. hnsw-16k: ``bench_hnsw``'s protocol (16,384 sets, 256-query batches),
+    its launches read around the build and the queries alone; then a
+    ``device="cpu"`` ``index_tokens`` over the same sets against it
+    (signatures, adjacency, levels, entry, answers), ``HNSW.from_points`` of
+    2,048 points on the card against the CPU, ``from_hnsw`` and a save /
+    load round trip;
 23. hnsw-65k-l2: 65,536 x 128 float32 points in Gaussian clusters of 16
     (seed 31) under ``l2`` (plain distance tiles), 1,024 queries, recall@10
     against a float64 brute force; 8,192 integer-valued points built on the
     card and on the CPU, equal;
 24. hnsw m 48: 8,192 signature rows whose 144 candidates a node take kernel
-    4's route (its launches read around it), equal to the plain tiles.
+    4's route (its launches read around the build alone), equal to the
+    plain tiles.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -2353,15 +2357,18 @@ class Smoke:
                n_queries, qps, n_queries // 4, sqps, self.hnsw.get("peak_bytes")))
         return index, q_rows, rows
 
-    def phase_hnsw_checks(self, index, q_rows, rows, n_sample: int = HNSW_SAMPLE,
+    def phase_hnsw_checks(self, index, docs, q_rows, rows, n_sample: int = HNSW_SAMPLE,
                           n_cpu: int = HNSW_CPU_QUERIES, n_adds: int = HNSW_ADDS,
                           n_removes: int = HNSW_REMOVES) -> None:
-        """hnsw-1m's checks: recall@10, the kNN rows of ``n_sample`` nodes
-        by the build's kernel route against the plain distance tiles on the
-        card, ``n_cpu`` answers against the same graph on the CPU; then
-        ``n_adds`` adds and a flush (the append path) and ``n_removes``
-        removals, and the queries again."""
+        """hnsw-1m's checks: recall@10; for ``n_sample`` nodes, their
+        signatures from the build (kernel 1, in the build's chunks) against
+        the plain signer on the CPU, and their kNN rows by the build's
+        kernel route against the plain distance tiles on the card; ``n_cpu``
+        answers against the same graph on the CPU; then ``n_adds`` adds and
+        a flush (the append path) and ``n_removes`` removals, and the
+        queries again."""
         torch = self.torch
+        from datasketch_tpu_torch import MinHash
         from datasketch_tpu_torch.ops import hnsw_ops, knn_graph
 
         g = index._graph
@@ -2370,13 +2377,19 @@ class Smoke:
         self.hnsw["recall"] = rec
         log("[hnsw-1m] recall@10 against kernel 2's exact scan: %.4f" % rec)
         check(rec >= HNSW_RECALL_FLOOR, "hnsw-1m recall %.4f < %.1f" % (rec, HNSW_RECALL_FLOOR))
-        sample = torch.as_tensor(np.random.RandomState(44).choice(n, n_sample, replace=False),
-                                 device=self.device)
+        sample_np = np.random.RandomState(44).choice(n, n_sample, replace=False)
+        sample = torch.as_tensor(sample_np, device=self.device)
+        host = MinHash.bulk_signatures([docs[i] for i in sample_np], num_perm=NUM_PERM,
+                                       hashfunc="device", out="device", device="cpu")
+        check(torch.equal(g.points[sample].cpu(), host),
+              "hnsw-1m: kernel 1's signatures differ from the plain signer's")
+        log("[hnsw-1m] signatures of %d sampled sets equal the plain signer's on the CPU"
+            % n_sample)
         kc = 3 * HNSW_M
         route = knn_graph.knn_route(g.points, kc, "minhash_jaccard")
         t0 = time.perf_counter()
         want = knn_graph.knn_adjacency(g.points, kc, "minhash_jaccard", rows=sample,
-                                       route="tiles")
+                                       _route="tiles")
         self.sync()
         plain_s = time.perf_counter() - t0
         got = knn_graph.knn_adjacency(g.points, kc, "minhash_jaccard", rows=sample)
@@ -2428,18 +2441,16 @@ class Smoke:
             % (n_adds, add_s, hit, n_removes, remove_s, len(after)))
         check(hit >= HNSW_RECALL_FLOOR, "hnsw-1m: appended points find themselves at %.4f" % hit)
 
-    def phase_hnsw_16k(self, docs, batch: int = HNSW16_BATCH, n_pts: int = HNSW_PTS) -> None:
+    def phase_hnsw_16k(self, docs, batch: int = HNSW16_BATCH):
         """hnsw-16k: ``bench_hnsw``'s protocol (16,384 clustered sets, m 16,
-        ef 64, ``batch``-query batches) on the card beside a
-        ``device="cpu"`` index over the same signatures: adjacency, levels,
-        entry and answers equal; then ``HNSW.from_points`` on the card
-        against the CPU at ``n_pts`` points, ``from_hnsw`` and a save / load
-        round trip."""
+        ef 64) by ``index_tokens``, then ``batch``-query batches by
+        ``query_batch`` and ``query_stream``. The launch counts are read
+        around this phase; :meth:`phase_hnsw_16k_checks` follows it."""
         torch = self.torch
-        from datasketch_tpu_torch import HNSW, TorchHNSW
+        from datasketch_tpu_torch import TorchHNSW
 
-        kw = dict(distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF)
-        index = TorchHNSW(device=self.device, **kw)
+        index = TorchHNSW(distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF,
+                          device=self.device)
         n = len(docs)
         self.sync()
         t0 = time.perf_counter()
@@ -2453,12 +2464,32 @@ class Smoke:
         qps, rows = self.timed_qps(lambda: index.query_batch(batches[0], TOP_K), batch)
         sqps, _ = self.timed_qps(
             lambda: list(index.query_stream(batches, TOP_K, depth=4)), 4 * batch, reps=2)
+        self.hnsw16 = {"build_s": build_s, "qps": qps, "stream_qps": sqps}
+        log("[hnsw-16k] %d sets: build %.3f s; query_batch of %d %.1f q/s, query_stream "
+            "(4 x %d, depth 4) %.1f q/s" % (n, build_s, batch, qps, batch, sqps))
+        return index, q_rows, rows, batches
+
+    def phase_hnsw_16k_checks(self, index, docs, q_rows, rows, batches,
+                              n_pts: int = HNSW_PTS) -> None:
+        """hnsw-16k's checks: recall@10; a ``device="cpu"`` index by
+        ``index_tokens`` over the same sets (kernel 1's plain signer): its
+        signatures, adjacency, levels, entry and answers equal the card's;
+        then ``HNSW.from_points`` on the card against the CPU at ``n_pts``
+        points, ``from_hnsw`` and a save / load round trip."""
+        torch = self.torch
+        from datasketch_tpu_torch import HNSW, TorchHNSW
+
+        g = index._graph
+        n, batch = g.n, batches[0].shape[0]
         rec = self.hnsw_recall(g.points, q_rows[:batch], rows)
-        cpu = TorchHNSW(device="cpu", **kw)
+        cpu = TorchHNSW(distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF,
+                        device="cpu")
         t0 = time.perf_counter()
-        cpu.index(range(n), g.points.cpu())
+        cpu.index_tokens(range(n), docs, num_perm=NUM_PERM)
         cpu_s = time.perf_counter() - t0
         c = cpu._graph
+        check(torch.equal(g.points.cpu(), c.points),
+              "hnsw-16k: kernel 1's signatures differ from the plain signer's")
         check(torch.equal(g.adj0.cpu(), c.adj0) and g.entry == c.entry
               and len(g.upper_nodes) == len(c.upper_nodes)
               and all(torch.equal(a.cpu(), b) for a, b in zip(g.upper_nodes, c.upper_nodes))
@@ -2466,12 +2497,10 @@ class Smoke:
               "hnsw-16k: the card's graph differs from the CPU's")
         check(cpu.query_batch(batches[0].cpu(), TOP_K) == rows,
               "hnsw-16k: the card's answers differ from the CPU's")
-        log("[hnsw-16k] %d sets: build %.3f s (device='cpu' %.1f s, equal graph and %d "
-            "answers); query_batch of %d %.1f q/s, query_stream (4 x %d, depth 4) %.1f q/s, "
-            "recall@10 %.4f" % (n, build_s, cpu_s, batch, batch, qps, batch, sqps, rec))
+        log("[hnsw-16k] recall@10 %.4f; index_tokens on the CPU %.1f s: equal signatures, "
+            "graph and %d answers" % (rec, cpu_s, batch))
         check(rec >= HNSW_RECALL_FLOOR, "hnsw-16k recall %.4f < %.1f" % (rec, HNSW_RECALL_FLOOR))
-        self.hnsw16 = {"build_s": build_s, "cpu_build_s": cpu_s, "qps": qps,
-                       "stream_qps": sqps, "recall": rec}
+        self.hnsw16.update(cpu_build_s=cpu_s, recall=rec)
 
         pts = g.points[:n_pts].cpu().numpy().view(np.uint32)
         pair = [HNSW.from_points(pts, metric="minhash_jaccard", m=HNSW_M, device=d)
@@ -2551,30 +2580,34 @@ class Smoke:
         log("[hnsw-65k-l2] %d integer-valued points: the card's graph and 64 answers equal "
             "the CPU's (CPU build %.1f s)" % (n_cpu, cpu_s))
 
-    def phase_hnsw_m48(self, sigs, n: int = HNSW_M48_ROWS) -> None:
-        """A build at m 48 on ``n`` signature rows: 144 candidates per node
-        take kernel 4's route (its launches are read around this phase);
-        its kNN rows equal the plain tiles'."""
-        torch = self.torch
+    def phase_hnsw_m48(self, pts) -> None:
+        """A build at m 48 on the signature rows ``pts``: 144 candidates per
+        node take kernel 4's route (its launches are read around this
+        phase; :meth:`phase_hnsw_m48_check` follows it)."""
         from datasketch_tpu_torch import TorchHNSW
-        from datasketch_tpu_torch.ops import knn_graph
 
-        pts = sigs[:n]
         self.sync()
         t0 = time.perf_counter()
         index = TorchHNSW(distance_metric="minhash_jaccard", m=48, ef=HNSW_EF,
                           device=self.device)
-        index.index(range(n), pts)
+        index.index(range(pts.shape[0]), pts)
         self.sync()
-        build_s = time.perf_counter() - t0
+        self.hnsw_m48 = {"build_s": time.perf_counter() - t0}
+        log("[hnsw-m48] %d rows at m 48: build %.3f s" % (pts.shape[0],
+                                                          self.hnsw_m48["build_s"]))
+
+    def phase_hnsw_m48_check(self, pts) -> None:
+        """The m 48 build's kNN rows (kernel 4's route) equal the plain
+        tiles'."""
+        from datasketch_tpu_torch.ops import knn_graph
+
         check(knn_graph.knn_route(pts, 144, "minhash_jaccard") == "score",
               "the m 48 build did not take kernel 4's route")
         got = knn_graph.knn_adjacency(pts, 144, "minhash_jaccard")
-        want = knn_graph.knn_adjacency(pts, 144, "minhash_jaccard", route="tiles")
-        check(torch.equal(got, want), "m 48: kernel 4's kNN rows differ from the plain tiles'")
-        self.hnsw_m48 = {"build_s": build_s}
-        log("[hnsw-m48] %d rows at m 48: build %.3f s; kernel 4's kNN rows equal the plain "
-            "tiles'" % (n, build_s))
+        want = knn_graph.knn_adjacency(pts, 144, "minhash_jaccard", _route="tiles")
+        check(self.torch.equal(got, want),
+              "m 48: kernel 4's kNN rows differ from the plain tiles'")
+        log("[hnsw-m48] kernel 4's kNN rows equal the plain tiles'")
 
     def timed_qps(self, fn, n_queries: int, reps: int = 3):
         """(best q/s over ``reps`` synced calls after a warm one, the last
@@ -3099,9 +3132,8 @@ def main() -> int:
         hnsw, hq, hrows = smoke.phase_hnsw(docs)
         torch.cuda.synchronize()
         hnsw_counts = counts()
-        del docs
-        smoke.phase_hnsw_checks(hnsw, hq, hrows)
-        del hnsw
+        smoke.phase_hnsw_checks(hnsw, docs, hq, hrows)
+        del hnsw, docs
         torch.cuda.empty_cache()
         log("[hnsw-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw)))
         log("[launches] hnsw-1m path: %s" % json.dumps(hnsw_counts))
@@ -3110,9 +3142,11 @@ def main() -> int:
                   % kname)
         docs16 = smoke.hnsw_corpus(HNSW16_SETS)
         zero_counts()
-        smoke.phase_hnsw_16k(docs16)
+        h16 = smoke.phase_hnsw_16k(docs16)
         torch.cuda.synchronize()
         h16_counts = counts()
+        smoke.phase_hnsw_16k_checks(h16[0], docs16, *h16[1:])
+        del h16
         log("[hnsw-16k] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw16)))
         log("[launches] hnsw-16k path: %s" % json.dumps(h16_counts))
         zero_counts()
@@ -3130,6 +3164,7 @@ def main() -> int:
         smoke.phase_hnsw_m48(m48_sigs)
         torch.cuda.synchronize()
         m48_counts = counts()
+        smoke.phase_hnsw_m48_check(m48_sigs)
         log("[hnsw-m48] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw_m48)))
         log("[launches] hnsw m 48 path: %s" % json.dumps(m48_counts))
         for label, got, path in (("hnsw-16k", h16_counts, HNSW_PATH),

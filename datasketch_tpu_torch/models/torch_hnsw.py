@@ -249,15 +249,8 @@ class TorchHNSW:
         src = np.repeat(new_ids, fwd.shape[1])
         dst = fwd.ravel()
         ok = dst >= 0
-        src, dst = src[ok], dst[ok]
-        order = np.argsort(dst, kind="stable")
-        src, dst = src[order], dst[order]
         fill = (adj[:n0] >= 0).sum(axis=1).astype(np.int64)
-        first = np.searchsorted(dst, dst, side="left")
-        rank = np.arange(dst.shape[0]) - first
-        slot = fill[dst] + rank
-        fits = slot < deg_cap
-        adj[dst[fits], slot[fits]] = src[fits]
+        src, dst, fits = knn_graph.add_reverse(adj, fill, src[ok], dst[ok], deg_cap)
 
         # 5. overflowed reverse rows: re-prune old neighbors + newcomers
         if (~fits).any():

@@ -132,31 +132,25 @@ def _knn_rows_score(points, rows, k: int, tile: int):
 
 
 def knn_adjacency(points, k: int = 16, metric="l2", tile: int = 256, device=None,
-                  rows=None, route=None) -> torch.Tensor:
+                  rows=None, _route=None) -> torch.Tensor:
     """Exact kNN graph adjacency int32[N, k] (directed, self excluded).
 
     Args:
         points: [N, D] array or tensor; a tensor stays on its device,
             an array goes to ``device`` (default ``"cuda"``).
         rows: optional row ids: only their kNN rows, int32[len(rows), k].
-        route: ``None`` picks by metric and dtype (:func:`knn_route`);
-            ``"scan"``, ``"score"`` or ``"tiles"`` force one (to hold the
-            routes against each other).
+        _route: forces ``"scan"``, ``"score"`` or ``"tiles"`` in place of
+            :func:`knn_route`'s pick, to hold the routes against each other.
     """
     points = _on_device(points, device)
     n = points.shape[0]
     rows = (torch.arange(n, device=points.device) if rows is None
             else torch.as_tensor(rows, device=points.device).long())
-    route = knn_route(points, k, metric) if route is None else route
-    if route in ("scan", "score") and (metric != "minhash_jaccard"
-                                       or points.dtype != torch.int32):
-        raise ValueError("the %r route takes minhash_jaccard on int32 signatures" % route)
+    route = knn_route(points, k, metric) if _route is None else _route
     if route == "scan":
         return _knn_rows_scan(points, rows, k, tile)
     if route == "score":
         return _knn_rows_score(points, rows, k, tile)
-    if route != "tiles":
-        raise ValueError("route must be None, 'scan', 'score' or 'tiles'")
     return _knn_rows_tiles(points, rows, k, distance_fn(metric), tile)
 
 
@@ -268,16 +262,23 @@ def _symmetrize(adj: np.ndarray, deg_cap: int) -> np.ndarray:
     src, dst = src[ok], dst[ok]
     # drop pairs where dst already points back at src
     already = (adj[dst] == src[:, None]).any(axis=1)
-    src, dst = src[~already], dst[~already]
-    # stable group by dst; rank within group = arange - first occurrence
+    add_reverse(full, fill, src[~already], dst[~already], deg_cap)
+    return full
+
+
+def add_reverse(full: np.ndarray, fill: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                deg_cap: int):
+    """Write each reverse edge ``dst -> src`` into ``full`` in place, at
+    slot ``fill[dst]`` plus its rank among ``dst``'s edges (in the given
+    order), where that slot is under ``deg_cap``. Returns the edges
+    grouped by ``dst`` (a stable sort) and the mask of those written."""
     order = np.argsort(dst, kind="stable")
     src, dst = src[order], dst[order]
-    first = np.searchsorted(dst, dst, side="left")
-    rank = np.arange(dst.shape[0]) - first
-    slot = fill[dst] + rank
-    keep = slot < deg_cap
-    full[dst[keep], slot[keep]] = src[keep]
-    return full
+    first = np.searchsorted(dst, dst, side="left")  # rank = arange - first occurrence
+    slot = fill[dst] + np.arange(dst.shape[0]) - first
+    fits = slot < deg_cap
+    full[dst[fits], slot[fits]] = src[fits]
+    return src, dst, fits
 
 
 def build_nsw_graph(points, keys=None, m: int = 16, metric="l2", tile: int = 256,

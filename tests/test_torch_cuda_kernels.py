@@ -745,7 +745,7 @@ def test_knn_scan_route_matches_plain_tiles(dev, p, k):
     before = lsh_scan.launches
     got = knn_graph.knn_adjacency(pts, k, "minhash_jaccard")
     assert lsh_scan.launches > before
-    assert torch.equal(got, knn_graph.knn_adjacency(pts, k, "minhash_jaccard", route="tiles"))
+    assert torch.equal(got, knn_graph.knn_adjacency(pts, k, "minhash_jaccard", _route="tiles"))
 
 
 @pytest.mark.parametrize("p", [66, 128, 512])
@@ -761,7 +761,7 @@ def test_knn_score_route_matches_plain_tiles(dev, p):
         got = knn_graph.knn_adjacency(pts, k, "minhash_jaccard")
         assert score.launches > before
         assert torch.equal(got, knn_graph.knn_adjacency(pts, k, "minhash_jaccard",
-                                                        route="tiles"))
+                                                        _route="tiles"))
 
 
 @pytest.mark.parametrize("metric", ["minhash_jaccard", "l2"])

@@ -84,14 +84,10 @@ def test_float_distances(metric, points, exact):
     np.testing.assert_allclose(got, want, rtol=0 if exact else RTOL, atol=0 if exact else 1e-6)
 
 
-def test_unknown_metric_and_bad_route_raise():
-    with pytest.raises(ValueError, match="unknown metric"):
-        th.distance_fn("hamming")
-    with pytest.raises(ValueError, match="route"):
-        tk.knn_adjacency(_int_points(10, 4, 0), k=3, metric="l2", device="cpu", route="scan")
-    with pytest.raises(ValueError, match="route"):
-        tk.knn_adjacency(_sigs(10, 8, 0), k=3, metric="minhash_jaccard", device="cpu",
-                         route="walk")
+def test_unknown_metric_raises():
+    for resolve in (th.distance_fn, th.eager_distance_fn):
+        with pytest.raises(ValueError, match="unknown metric"):
+            resolve("hamming")
 
 
 @pytest.mark.parametrize("p,alphabet", [(66, 2), (66, 4), (128, 3)])
@@ -101,11 +97,11 @@ def test_knn_adjacency_minhash_routes(p, alphabet, route):
     pts[40:50] = pts[7]  # ten copies of row 7 beside it: more than k + 1 at count P
     for k in (3, 24):
         want = _np(jk.knn_adjacency(pts, k=k, metric="minhash_jaccard"))
-        got = tk.knn_adjacency(pts, k=k, metric="minhash_jaccard", device="cpu", route=route)
+        got = tk.knn_adjacency(pts, k=k, metric="minhash_jaccard", device="cpu", _route=route)
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), want), (route, k)
     rows = np.array([45, 7, 0, 299])
-    got = tk.knn_adjacency(pts, k=24, metric="minhash_jaccard", device="cpu", route=route,
+    got = tk.knn_adjacency(pts, k=24, metric="minhash_jaccard", device="cpu", _route=route,
                            rows=rows, tile=1)
     assert np.array_equal(got.numpy(), want[rows])
 

@@ -130,13 +130,15 @@ def test_smoke_hnsw_phases_on_cpu():
     assert len(docs) == 1500 and min(map(len, docs)) >= 1
     index, q_rows, rows = smoke.phase_hnsw(docs, n_queries=64)
     assert smoke.hnsw["levels"] == 2
-    smoke.phase_hnsw_checks(index, q_rows, rows, n_sample=64, n_cpu=16, n_adds=100,
+    smoke.phase_hnsw_checks(index, docs, q_rows, rows, n_sample=64, n_cpu=16, n_adds=100,
                             n_removes=30)
     assert smoke.hnsw["recall"] >= chip_smoke.HNSW_RECALL_FLOOR
     docs16 = smoke.hnsw_corpus(n_sets=400)
-    smoke.phase_hnsw_16k(docs16, batch=32, n_pts=300)
+    index16, q16, rows16, batches = smoke.phase_hnsw_16k(docs16, batch=32)
+    smoke.phase_hnsw_16k_checks(index16, docs16, q16, rows16, batches, n_pts=300)
     smoke.phase_hnsw_l2(n=1024, n_queries=64, n_cpu=300)
     assert smoke.hnsw_l2["recall"] >= chip_smoke.HNSW_RECALL_FLOOR
     sigs = MinHash.bulk_signatures(docs16[:300], num_perm=chip_smoke.NUM_PERM,
                                    hashfunc="device", out="device", device="cpu")
-    smoke.phase_hnsw_m48(sigs, n=300)
+    smoke.phase_hnsw_m48(sigs)
+    smoke.phase_hnsw_m48_check(sigs)
