@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: MinHash -> LSH serving,
-LSH Ensemble containment serving, weighted MinHash (CWS) serving, b-bit
-MinHash serving, the raw-text front ends, LSH Forest serving, the rest of
-the LSH facade, the per-object MinHash API, HyperLogLog, the OPH and
-C-MinHash schemes, LSHBloom and HNSW.
+its host failover and the host LSH classes, LSH Ensemble containment
+serving, weighted MinHash (CWS) serving, b-bit MinHash serving, the
+raw-text front ends, LSH Forest serving, the rest of the LSH facade, the
+per-object MinHash API, HyperLogLog, the OPH and C-MinHash schemes,
+LSHBloom and HNSW.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -39,6 +40,25 @@ Phases (any failed check raises and the script exits non-zero):
 6. serving: 1,024-query ``top_k`` (scan, bands, auto; k = 10 and 256),
    threshold ``query_batch`` (bands, scan, and a scan that escalates past
    128 matches), then 1,000 removals and the queries again;
+6a. failover-1m: the served index (its removals included) behind
+    ``FailoverIndex(monitor=HealthMonitor(max_failures=1))``: a real
+    subprocess probe of the card (must be ok), the 1,024 queries through
+    the wrapper (top_k k = 10 scan and bands, query_batch 0.5 scan, top_k k
+    = 256 scan) on the device, equal to the index's own answers, with
+    kernels 2, 3 and 4's launches read around them alone; a real failed
+    probe of ``cuda:<device_count>`` trips it; 16 queries answered from the
+    host snapshot launch no kernel and agree with the device's (score
+    columns equal, ids above the k-th score equal, threshold answers equal,
+    no removed key); ``resume_device()`` returns to the device;
+6b. host-lsh-262k: the index's first 262,144 rows in the host
+    ``MinHashLSH`` (``insert_batch``) and a ``rerank=False``
+    ``TorchMinHashLSH``; 1,024 edited signature-corpus docs signed on the
+    card (kernel 1) and 16 near-copies of row 0 by ``query_batch``: every
+    host answer a subset of the device's, the source in both, nothing
+    truncated; 16,384 rows in an ``AsyncMinHashLSH`` on ``aiodict`` equal
+    to the host class; on the served index's tables ``topk_fused`` by
+    direct address (``build_offsets``, kernel 3) equal to the binary search
+    for every query whose windows fit;
 7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one,
    and an index built from rows of a device tensor (a list, then single
    inserts) queried by lists of device rows against the batch index;
@@ -235,6 +255,12 @@ HNSW_PTS = 2048  # HNSW.from_points on the card against the CPU
 L2_POINTS, L2_DIM, L2_CLUSTER = 65536, 128, 16
 L2_CPU_POINTS = 8192
 HNSW_M48_ROWS = 8192
+FO_HOST_QUERIES = 16  # answered by the host scan over the 1M-row snapshot
+HOST_LSH_ROWS = 1 << 18
+HOST_LSH_ASYNC_ROWS = 1 << 14
+HOST_LSH_CAP = 512  # above the 300 near-copies of row 0: no truncation
+HOST_LSH_REPLACE = 0.02  # share of a query doc's tokens replaced (Jaccard ~0.96)
+HOST_LSH_NEAR = 16  # near-copies of row 0 among the queries
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -320,6 +346,8 @@ MINHASH_PATH = ("minhash_sign",)
 SCHEMES_PATH = ("minhash_sign", "topk_scan", "rerank")
 HNSW_PATH = ("minhash_sign", "topk_scan")
 HNSW_M48_PATH = ("score_matrix",)
+FAILOVER_PATH = ("topk_scan", "rerank", "score_matrix")
+HOST_LSH_PATH = ("minhash_sign", "rerank")
 
 
 class SmokeFailure(RuntimeError):
@@ -928,6 +956,7 @@ class Smoke:
             "synced); plain version and 16 host rows agree" % (
                 n_docs, TOKENS_PER_DOC, " / ".join("%.1f" % r for r in rates)))
         self.sig_rate = max(rates)
+        self.sig_corpus = corpus
         return host
 
     def phase_index(self, real_sigs: np.ndarray, n_rows: int = N_INDEX):
@@ -1012,6 +1041,7 @@ class Smoke:
         for key in removed:
             index.remove(key)
         gone = set(removed)
+        self.removed = gone
         for method in ("scan", "bands"):
             rows = timed("top_k k=%d %s after remove" % (TOP_K, method),
                          lambda m=method: index.top_k(queries, TOP_K, method=m))
@@ -1023,6 +1053,230 @@ class Smoke:
         log("[serving] after %d removals: scan %.1f q/s, bands %.1f q/s; no removed key "
             "returned" % (len(removed), self.qps["top_k k=%d scan after remove" % TOP_K],
                           self.qps["top_k k=%d bands after remove" % TOP_K]))
+
+    def phase_failover(self, index, sigs, dst, counts=None, n_queries: int = N_QUERIES,
+                       n_host: int = FO_HOST_QUERIES) -> None:
+        """failover-1m: ``FailoverIndex`` over the served index (removals
+        included). A real probe of the card, the queries through the wrapper
+        on the device (kernels 2, 3 and 4 counted by ``counts`` around them
+        alone), a real failed probe of a device that does not exist, host
+        answers that launch nothing and agree with the device's, and the
+        explicit failback."""
+        torch = self.torch
+        from datasketch_tpu_torch import FailoverIndex
+        from datasketch_tpu_torch.serving import _host_scores
+        from datasketch_tpu_torch.utils import HealthMonitor
+
+        queries = sigs[dst[-n_queries:]]
+        fo_stats = {}
+        t0 = time.perf_counter()
+        fo = FailoverIndex(index, monitor=HealthMonitor(max_failures=1, device=self.device))
+        snap = fo._snapshot
+        fo_stats["snapshot_s"] = time.perf_counter() - t0
+        fo_stats["snapshot_bytes"] = int(snap["sigs"].nbytes) + (
+            0 if snap["alive"] is None else int(snap["alive"].nbytes))
+        check(snap["alive"] is not None and not snap["alive"].all(),
+              "the snapshot carries no tombstones")
+        t0 = time.perf_counter()
+        probe = fo.check()
+        fo_stats["probe_wall_s"] = time.perf_counter() - t0
+        check(probe["ok"], "the probe of a healthy card failed: %s" % probe)
+        fo_stats["probe_latency_s"] = probe["latency_s"]
+        calls = (
+            ("top_k k=%d scan" % TOP_K, lambda q: fo.top_k(q, TOP_K, method="scan"),
+             lambda q: index.top_k(q, TOP_K, method="scan")),
+            ("top_k k=%d bands" % TOP_K, lambda q: fo.top_k(q, TOP_K, method="bands"),
+             lambda q: index.top_k(q, TOP_K, method="bands")),
+            ("query_batch 0.5 scan",
+             lambda q: fo.query_batch(q, return_scores=True, method="scan"),
+             lambda q: index.query_batch(q, return_scores=True, method="scan")),
+            ("top_k k=%d scan" % BIG_K, lambda q: fo.top_k(q, BIG_K, method="scan"),
+             lambda q: index.top_k(q, BIG_K, method="scan")),
+        )
+        for _, via, _ in calls:
+            via(queries)  # first call of each shape, outside the timed window
+        before = counts() if counts else None
+        got, qps = {}, {}
+        for label, via, _ in calls:
+            self.sync()
+            t0 = time.perf_counter()
+            got[label] = via(queries)
+            self.sync()
+            qps[label] = n_queries / (time.perf_counter() - t0)
+            check(fo.last_path == "device", "%s was answered from the %s" % (label, fo.last_path))
+        self.sync()
+        if counts:
+            after = counts()
+            self.fo_counts = {k: after[k] - before[k] for k in after}
+            for kname in FAILOVER_PATH:
+                check(self.fo_counts[kname] > 0,
+                      "kernel %s was not launched on the failover-1m path" % kname)
+        check(not fo.serving_from_host and not fo.status()["serving_from_host"],
+              "a healthy wrapper reports host serving")
+        for label, _, own in calls:
+            check(got[label] == own(queries), "%s through the wrapper differs from the "
+                  "index's own answer" % label)
+        gone = self.removed
+        fo.monitor.device = "cuda:%d" % torch.cuda.device_count()
+        t0 = time.perf_counter()
+        tripped = fo.check()
+        fo_stats["failed_probe_wall_s"] = time.perf_counter() - t0
+        fo.monitor.device = self.device
+        check(not tripped["ok"] and "no CUDA device" in str(tripped["error"]),
+              "the probe of a missing device did not fail: %s" % tripped)
+        check(fo.serving_from_host and fo.status()["serving_from_host"],
+              "one failed probe did not trip a max_failures=1 monitor")
+        hq = queries[:n_host]
+        before = counts() if counts else None
+        t0 = time.perf_counter()
+        host_top = fo.top_k(hq, TOP_K)
+        check(fo.last_path == "host", "a tripped wrapper answered from the device")
+        t1 = time.perf_counter()
+        host_thr = fo.query_batch(hq, return_scores=True)
+        t2 = time.perf_counter()
+        check(fo.last_path == "host", "a tripped wrapper answered from the device")
+        if counts:
+            check(counts() == before, "the host path launched a kernel: %s -> %s"
+                  % (json.dumps(before), json.dumps(counts())))
+        qps["host top_k k=%d" % TOP_K] = n_host / (t1 - t0)
+        qps["host query_batch 0.5"] = n_host / (t2 - t1)
+        dev_top = got["top_k k=%d scan" % TOP_K][:n_host]
+        for qi, (h, d) in enumerate(zip(host_top, dev_top)):
+            check([s for _, s in h] == [s for _, s in d],
+                  "query %d: host and device top-k scores differ" % qi)
+            kth = d[-1][1]
+            check({kk for kk, s in h if s > kth} == {kk for kk, s in d if s > kth},
+                  "query %d: host and device ids above the k-th score differ" % qi)
+            scores = _host_scores(snap["sigs"], hq[qi], None)
+            check(all(scores[kk] == s for kk, s in h),
+                  "query %d: a host score is not its row's equal-slot share" % qi)
+            check(not any(kk in gone for kk, _ in h), "the host path returned a removed key")
+        for qi, (h, d) in enumerate(zip(host_thr, got["query_batch 0.5 scan"][:n_host])):
+            check(h == d, "query %d: host and device threshold answers differ" % qi)
+            check(not any(kk in gone for kk, _ in h), "the host path returned a removed key")
+        fo.resume_device()
+        check(fo.top_k(hq, TOP_K, method="scan") == dev_top and fo.last_path == "device",
+              "resume_device() did not return to the device")
+        fo_stats["qps"] = qps
+        self.failover = fo_stats
+        log("[failover-1m] probe ok in %.3f s (op %.4f s), failed probe %.3f s; snapshot "
+            "%.3f s, %d B; q/s %s" % (fo_stats["probe_wall_s"], probe["latency_s"],
+                                      fo_stats["failed_probe_wall_s"], fo_stats["snapshot_s"],
+                                      fo_stats["snapshot_bytes"], json.dumps(qps)))
+
+    def host_lsh_queries(self, n_queries: int = N_QUERIES, replace: float = HOST_LSH_REPLACE):
+        """Queries of host-lsh-262k: signature-corpus docs with a share of
+        their tokens replaced, signed on the card (kernel 1); returns
+        (uint32[n, P] signatures, source rows)."""
+        from datasketch_tpu_torch import MinHash
+
+        rng = np.random.RandomState(31)
+        src = rng.choice(len(self.sig_corpus), n_queries, replace=False)
+        docs = []
+        for i in src:
+            doc = list(self.sig_corpus[i])
+            for j in np.nonzero(rng.rand(len(doc)) < replace)[0]:
+                doc[j] = bytes(rng.randint(0, 256, size=10, dtype=np.uint8))
+            docs.append(doc)
+        q = MinHash.bulk_signatures(docs, num_perm=NUM_PERM, seed=1, out="host",
+                                    device=self.device)
+        return q, src
+
+    def phase_host_lsh(self, index, sigs, near, n_rows: int = HOST_LSH_ROWS,
+                       n_async: int = HOST_LSH_ASYNC_ROWS, n_queries: int = N_QUERIES):
+        """host-lsh-262k: the host ``MinHashLSH`` over lsh-1m's first rows
+        against a ``rerank=False`` ``TorchMinHashLSH`` of the same rows
+        (host answers are subsets: fingerprint collisions only add), asked
+        by edited docs and by 16 of the near-copies of row 0 (hundreds of
+        candidates each),
+        ``AsyncMinHashLSH`` on ``aiodict`` over fewer rows against the host
+        class, and on lsh-1m's tables ``topk_fused`` by direct address
+        against the binary-search route. Times are host seconds."""
+        import asyncio
+
+        torch = self.torch
+        from datasketch_tpu_torch import AsyncMinHashLSH, MinHash, MinHashLSH, TorchMinHashLSH
+        from datasketch_tpu_torch.ops import lsh_ops
+
+        stats = {}
+        q, src = self.host_lsh_queries(n_queries)
+        crowd = near[1:1 + HOST_LSH_NEAR]
+        q, src = np.concatenate([q, sigs[crowd]]), np.concatenate([src, crowd])
+        rows = sigs[:n_rows]
+        t0 = time.perf_counter()
+        objs = [MinHash(num_perm=NUM_PERM, hashvalues=r) for r in rows]
+        q_objs = [MinHash(num_perm=NUM_PERM, hashvalues=r) for r in q]
+        stats["objects_s"] = time.perf_counter() - t0
+        host = MinHashLSH(threshold=0.5, num_perm=NUM_PERM)
+        t0 = time.perf_counter()
+        host.insert_batch(range(n_rows), objs)
+        stats["host_insert_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_ans = host.query_batch(q_objs)
+        stats["host_query_s"] = time.perf_counter() - t0
+        dev = TorchMinHashLSH(threshold=0.5, num_perm=NUM_PERM, rerank=False,
+                              bucket_cap=HOST_LSH_CAP, device=self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        dev.index(range(n_rows), rows)
+        self.sync()
+        stats["device_index_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev_ans = dev.query_batch(q)
+        stats["device_query_s"] = time.perf_counter() - t0
+        check(dev.last_truncated == 0, "the device answers were truncated (%d)"
+              % dev.last_truncated)
+        check(min(len(a) for a in host_ans[-len(crowd):]) > 100,
+              "the near-copy queries found few candidates")
+        for qi, (h, d, s) in enumerate(zip(host_ans, dev_ans, src)):
+            check(set(h) <= set(d), "query %d: a host answer is not in the device answer" % qi)
+            check(int(s) in h and int(s) in d, "query %d: the planted source is missing" % qi)
+        stats["mean_candidates"] = [float(np.mean([len(a) for a in host_ans])),
+                                    float(np.mean([len(a) for a in dev_ans]))]
+        small = MinHashLSH(threshold=0.5, num_perm=NUM_PERM)
+        small.insert_batch(range(n_async), objs[:n_async])
+
+        async def drive():
+            async with AsyncMinHashLSH(threshold=0.5, num_perm=NUM_PERM) as lsh:
+                t0 = time.perf_counter()
+                async with lsh.insertion_session() as session:
+                    for key, m in zip(range(n_async), objs[:n_async]):
+                        await session.insert(key, m)
+                t1 = time.perf_counter()
+                out = [await lsh.query(m) for m in q_objs]
+                return out, t1 - t0, time.perf_counter() - t1
+
+        async_ans, stats["async_insert_s"], stats["async_query_s"] = asyncio.run(drive())
+        want = small.query_batch(q_objs)
+        check([sorted(a) for a in async_ans] == [sorted(w) for w in want],
+              "AsyncMinHashLSH answers differ from the host MinHashLSH's")
+        check(any(want), "no async query found a candidate")
+        # direct addressing on lsh-1m's tables, against the binary search
+        n_buckets = 1 << max(int(index._sorted_fp.shape[1] - 1).bit_length(), 0)
+        qt = torch.from_numpy(sigs[-n_queries:].view(np.int32)).to(self.device)
+        args = (index._sorted_fp, index._sorted_ids, index._sigs, qt, index.b, index.r,
+                index.bucket_cap, TOP_K)
+        self.sync()
+        t0 = time.perf_counter()
+        offsets = lsh_ops.build_offsets(index._sorted_fp, n_buckets)
+        self.sync()
+        stats["offsets_s"] = time.perf_counter() - t0
+        direct = lsh_ops.topk_fused(*args, offsets=offsets, n_buckets=n_buckets)
+        search = lsh_ops.topk_fused(*args)
+        q_t = lsh_ops.band_fingerprints(qt, index.b, index.r).T.contiguous()
+        run = (torch.searchsorted(index._sorted_fp, q_t, side="right")
+               - torch.searchsorted(index._sorted_fp, q_t, side="left"))
+        bk = q_t >> lsh_ops._bucket_shift(n_buckets)
+        window = offsets.gather(1, bk + 1) - offsets.gather(1, bk)
+        fits = ((run <= index.bucket_cap) & (window <= index.bucket_cap)).all(dim=0)
+        check(float(fits.float().mean()) >= 0.5, "only %d of %d queries fit their windows"
+              % (int(fits.sum()), n_queries))
+        for a, b in zip(direct[:2], search[:2]):
+            check(torch.equal(a[fits], b[fits]),
+                  "topk_fused by direct address differs from the binary search")
+        stats["offsets_queries_compared"] = int(fits.sum())
+        self.host_lsh = stats
+        log("[host-lsh-262k] %d rows (host seconds): %s" % (n_rows, json.dumps(stats)))
 
     def phase_facade_parity(self, sigs: np.ndarray, n_rows: int = PARITY_ROWS,
                             n_queries: int = PARITY_QUERIES) -> None:
@@ -2992,6 +3246,21 @@ def main() -> int:
         smoke.phase_serving(index, sigs, src, dst, near)
         torch.cuda.synchronize()
         lsh_counts = counts()
+        zero_counts()
+        smoke.phase_failover(index, sigs, dst, counts=counts)
+        fo_counts = smoke.fo_counts
+        log("[failover-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.failover)))
+        log("[launches] failover-1m path (the device calls alone): %s"
+            % json.dumps(fo_counts))
+        zero_counts()
+        smoke.phase_host_lsh(index, sigs, near)
+        torch.cuda.synchronize()
+        hl_counts = counts()
+        log("[host-lsh-262k] %s" % nvidia_smi_line())
+        log("[launches] host-lsh-262k path: %s" % json.dumps(hl_counts))
+        for kname in HOST_LSH_PATH:
+            check(hl_counts[kname] > 0, "kernel %s was not launched on the host-lsh-262k "
+                  "path" % kname)
         del index
         torch.cuda.empty_cache()
         smoke.phase_facade_parity(sigs)
@@ -3173,7 +3442,7 @@ def main() -> int:
                 check(got[kname] > 0, "kernel %s was not launched on the %s path"
                       % (kname, label))
         log("[hnsw] the four HNSW phases: %.1f s" % (time.perf_counter() - t_hnsw))
-        paths = (lsh_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
+        paths = (lsh_counts, fo_counts, hl_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
                  forest_counts, f16_counts, facade2_counts, mh_counts, sch_counts,
                  hnsw_counts, h16_counts, l2_counts, m48_counts)
         launches = {name: sum(c[name] for c in paths) for name in lsh_counts}

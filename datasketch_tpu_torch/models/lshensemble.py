@@ -1,21 +1,28 @@
-"""LSH Ensemble host parameters: per-x/q (b, r) tables and the size partitioner.
+"""LSH Ensemble on the host: per-x/q (b, r) tables, the size partitioner and
+the storage-backed ``MinHashLSHEnsemble``.
 
 Copied from the numpy-only code of ``datasketch_tpu/models/lshensemble.py``
 (containment FP/FN integrals by fixed-order Gauss-Legendre quadrature over
 the whole (b, r) grid, the expected-false-positive matrix from cumulative
 sums, and the partition DP with vectorized inner minimizations), so the
 port chooses the same partitions and the same (b, r) for every query.
+:class:`MinHashLSHEnsemble` is the JAX package's host class over the port's
+host :class:`~datasketch_tpu_torch.models.lsh.MinHashLSH`.
 """
 
 from __future__ import annotations
 
 import functools
+import struct
+from collections import Counter
+from typing import Hashable, Iterable, Optional
 
 import numpy as np
 
+from datasketch_tpu_torch.models.lsh import MinHashLSH, _random_name
 from datasketch_tpu_torch.models.lsh_params import _gauss_legendre
 
-__all__ = ["optimal_partitions", "optimal_params_table", "params_for"]
+__all__ = ["MinHashLSHEnsemble", "optimal_partitions"]
 
 
 def _containment_fp_fn(threshold: float, bs, rs, xq: float, n_quad: int = 64):
@@ -159,3 +166,121 @@ def optimal_partitions(sizes, counts, num_part: int):
     nfps = _nfps_matrix(counts, sizes)
     partitions, _ = _best_partitions(num_part, sizes, nfps)
     return partitions
+
+
+class MinHashLSHEnsemble:
+    """Containment-threshold index: size partitions × per-r LSH sub-indexes.
+
+    Args:
+        threshold: Containment threshold in [0, 1].
+        num_perm: Signature length.
+        num_part: Number of size partitions (more = better accuracy).
+        m: Memory factor (max r considered; ~m× the memory of one LSH).
+        weights: (fp_weight, fn_weight) for the optimizer.
+        storage_config / prepickle: as in :class:`MinHashLSH`.
+    """
+
+    def __init__(
+        self,
+        threshold: float = 0.9,
+        num_perm: int = 128,
+        num_part: int = 16,
+        m: int = 8,
+        weights: tuple = (0.5, 0.5),
+        storage_config: Optional[dict] = None,
+        prepickle: Optional[bool] = None,
+    ) -> None:
+        if threshold > 1.0 or threshold < 0.0:
+            raise ValueError("threshold must be in [0.0, 1.0]")
+        if num_perm < 2:
+            raise ValueError("Too few permutation functions")
+        if num_part < 1:
+            raise ValueError("num_part must be at least 1")
+        if m < 2 or m > num_perm:
+            raise ValueError("m must be in the range of [2, num_perm]")
+        if any(w < 0.0 or w > 1.0 for w in weights):
+            raise ValueError("Weight must be in [0.0, 1.0]")
+        if sum(weights) != 1.0:
+            raise ValueError("Weights must sum to 1.0")
+        self.threshold = threshold
+        self.h = num_perm
+        self.m = m
+        rs = self._init_optimal_params(weights)
+        storage_config = storage_config if storage_config else {"type": "dict"}
+        basename = storage_config.get("basename", _random_name(11))
+        if isinstance(basename, str):
+            basename = basename.encode("ascii")
+        self.indexes = [
+            {
+                r: MinHashLSH(
+                    num_perm=self.h,
+                    params=(int(self.h / r), r),
+                    storage_config=self._get_storage_config(
+                        basename, storage_config, partition, r
+                    ),
+                    prepickle=prepickle,
+                )
+                for r in rs
+            }
+            for partition in range(0, num_part)
+        ]
+        self.lowers = [None for _ in self.indexes]
+        self.uppers = [None for _ in self.indexes]
+
+    def _init_optimal_params(self, weights):
+        self.xqs, self.params = optimal_params_table(
+            self.threshold, self.h, self.m, weights
+        )
+        return {int(r) for _, r in self.params}
+
+    def _get_storage_config(self, basename, base_config, partition, r):
+        config = dict(base_config)
+        config["basename"] = b"-".join(
+            [basename, struct.pack(">H", partition), struct.pack(">H", r)]
+        )
+        return config
+
+    def index(self, entries: Iterable) -> None:
+        """One-shot build from ``(key, minhash, size)`` tuples: DP-optimal
+        size partitions, then insert each set into its partition's every
+        r-index (lshensemble.py:189-228)."""
+        if not self.is_empty():
+            raise ValueError("Cannot call index again on a non-empty index")
+        entries = list(entries)
+        for _, _, size in entries:
+            if size <= 0:
+                raise ValueError("Set size must be positive")
+        if len(entries) == 0:
+            raise ValueError("entries is empty")
+        sizes, counts = np.array(
+            sorted(Counter(e[2] for e in entries).most_common())
+        ).T
+        partitions = optimal_partitions(sizes, counts, len(self.indexes))
+        for i, (lower, upper) in enumerate(partitions):
+            self.lowers[i], self.uppers[i] = lower, upper
+        entries.sort(key=lambda e: e[2])
+        curr_part = 0
+        for key, minhash, size in entries:
+            u = self.uppers[curr_part]
+            if size > u:
+                curr_part += 1
+            for r in self.indexes[curr_part]:
+                self.indexes[curr_part][r].insert(key, minhash)
+
+    def query(self, minhash, size: int):
+        """Yield keys of sets whose containment of the query likely exceeds
+        the threshold: per partition, pick (b, r) by the x/q ratio and probe
+        the first b bands of that partition's r-index."""
+        for i, index in enumerate(self.indexes):
+            u = self.uppers[i]
+            if u is None:
+                continue
+            b, r = params_for(self.xqs, self.params, float(u), float(size))
+            for key in index[int(r)]._query_b(minhash, int(b)):
+                yield key
+
+    def __contains__(self, key: Hashable) -> bool:
+        return any(any(key in index[r] for r in index) for index in self.indexes)
+
+    def is_empty(self) -> bool:
+        return all(all(index[r].is_empty() for r in index) for index in self.indexes)

@@ -5,7 +5,8 @@ facade calls. Conventions:
 
 - signatures: int32[N, P] tensors of uint32 bit patterns (equality only);
 - band fingerprints: int64 holding 0..2**32-1, so sorts and
-  ``searchsorted`` see the unsigned order of the JAX package's uint32;
+  ``searchsorted`` see the unsigned order of the JAX package's uint32, and
+  ``fp >> shift`` is its unsigned shift (never shift an int32 view);
 - tables: per band, fingerprints sorted with a stable sort (ties keep
   ascending doc id) and the matching int32 doc ids;
 - tie order: ``lax.top_k`` puts the lowest index first among equal
@@ -31,8 +32,10 @@ from datasketch_tpu_torch.ops.hashing import mix32
 __all__ = [
     "band_fingerprints",
     "build_tables",
+    "build_offsets",
     "bucket_stats",
     "query_tables",
+    "query_tables_direct",
     "rerank_jaccard",
     "topk_candidates",
     "threshold_select",
@@ -84,6 +87,25 @@ def bucket_stats(sorted_fp: torch.Tensor):
     return run_len.max(dim=1).values, boundary.sum(dim=1)
 
 
+def _bucket_windows(sorted_fp, sorted_ids, q_t, start, end, cap: int,
+                    exact: bool):
+    """ids int32[Q, b, cap] of the table positions [start, start + cap)
+    below ``end`` (per band and query, [b, Q]), -1 elsewhere; with
+    ``exact`` only positions whose fingerprint equals the query's. Also
+    returns the window overflow (int64 scalar tensor)."""
+    b, nq = start.shape
+    pos = start[:, :, None] + torch.arange(cap, device=q_t.device)
+    valid = pos < end[:, :, None]
+    safe = torch.where(valid, pos, 0).reshape(b, nq * cap)
+    if exact:
+        fps = torch.gather(sorted_fp, 1, safe).reshape(b, nq, cap)
+        valid &= fps == q_t[:, :, None]
+    ids = torch.gather(sorted_ids, 1, safe)
+    ids = torch.where(valid, ids.reshape(b, nq, cap), -1)
+    trunc = (end - start - cap).clamp_min(0).sum()
+    return ids.permute(1, 0, 2).contiguous(), trunc
+
+
 def query_tables(sorted_fp, sorted_ids, q_fps, cap: int = 128):
     """Batched band-bucket lookup.
 
@@ -96,18 +118,45 @@ def query_tables(sorted_fp, sorted_ids, q_fps, cap: int = 128):
         ids int32[Q, b, cap] candidate doc ids, -1 where invalid;
         truncated: int64 scalar tensor, candidates dropped by the cap.
     """
-    b = sorted_fp.shape[0]
-    nq = q_fps.shape[0]
     q_t = q_fps.T.contiguous()  # [b, Q]
     start = torch.searchsorted(sorted_fp, q_t, side="left")
     end = torch.searchsorted(sorted_fp, q_t, side="right")
-    pos = start[:, :, None] + torch.arange(cap, device=q_t.device)
-    valid = pos < end[:, :, None]
-    safe = torch.where(valid, pos, 0).reshape(b, nq * cap)
-    ids = torch.gather(sorted_ids, 1, safe)
-    ids = torch.where(valid, ids.reshape(b, nq, cap), -1)
-    trunc = (end - start - cap).clamp_min(0).sum()
-    return ids.permute(1, 0, 2).contiguous(), trunc
+    return _bucket_windows(sorted_fp, sorted_ids, q_t, start, end, cap, exact=False)
+
+
+def _bucket_shift(n_buckets: int) -> int:
+    return 32 - int(n_buckets).bit_length() + 1
+
+
+def build_offsets(sorted_fp, n_buckets: int):
+    """Direct-address offsets over the sorted band tables: int32[b,
+    n_buckets + 1].
+
+    Fingerprints are uniform over 0..2**32-1, so their top
+    ``log2(n_buckets)`` bits index a bucket; ``offsets[band, i]`` is the
+    first table position whose fingerprint falls in bucket i. Queries then
+    find their bucket with one gather instead of a binary search over N.
+    """
+    bucket = sorted_fp >> _bucket_shift(n_buckets)  # [b, N], nondecreasing
+    bounds = torch.arange(n_buckets + 1, device=sorted_fp.device)
+    bounds = bounds.expand(sorted_fp.shape[0], -1).contiguous()
+    return torch.searchsorted(bucket, bounds, side="left").to(torch.int32)
+
+
+def query_tables_direct(sorted_fp, sorted_ids, offsets, q_fps, cap: int,
+                        n_buckets: int):
+    """Band-bucket lookup by direct address (:func:`build_offsets`).
+
+    The result contract of :func:`query_tables`, but ``cap`` bounds the
+    scanned bucket *window* (a window holds every fingerprint sharing the
+    top bits); entries of other fingerprints in it are dropped by an exact
+    compare. ``truncated`` counts window overflow.
+    """
+    q_t = q_fps.T.contiguous()  # [b, Q]
+    bk = q_t >> _bucket_shift(n_buckets)
+    start = torch.gather(offsets, 1, bk).long()
+    end = torch.gather(offsets, 1, bk + 1).long()
+    return _bucket_windows(sorted_fp, sorted_ids, q_t, start, end, cap, exact=True)
 
 
 def query_bands_masked(sorted_fp, sorted_ids, q_sigs, b: int, r: int,
@@ -257,9 +306,14 @@ def unique_compact(ids, max_out: int):
     return sel_ids, n
 
 
-def _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid):
+def _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid,
+                     offsets=None, n_buckets: int = 0):
     q_fps = band_fingerprints(q_sigs, b, r)
-    ids, trunc = query_tables(sorted_fp, sorted_ids, q_fps, cap=cap)
+    if offsets is not None:
+        ids, trunc = query_tables_direct(sorted_fp, sorted_ids, offsets, q_fps,
+                                         cap, n_buckets)
+    else:
+        ids, trunc = query_tables(sorted_fp, sorted_ids, q_fps, cap=cap)
     flat = ids.reshape(q_sigs.shape[0], -1)
     if n_valid is not None:
         flat = torch.where(flat < n_valid, flat, -1)
@@ -276,21 +330,26 @@ def query_candidates_fused(sorted_fp, sorted_ids, q_sigs, b: int, r: int,
 
 
 def query_fused(sorted_fp, sorted_ids, db_sigs, q_sigs, b: int, r: int,
-                cap: int, cutoff, max_out: int, n_valid=None):
-    """Threshold query: fingerprints -> band probes -> rerank (kernel 3) ->
-    dedupe + cutoff + compaction. Returns (sel_ids, sel_sc, n_match,
-    truncated)."""
-    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid)
+                cap: int, cutoff, max_out: int, offsets=None,
+                n_buckets: int = 0, n_valid=None):
+    """Threshold query: fingerprints -> band probes (by direct address when
+    ``offsets`` from :func:`build_offsets` is given, else by binary search)
+    -> rerank (kernel 3) -> dedupe + cutoff + compaction. Returns
+    (sel_ids, sel_sc, n_match, truncated)."""
+    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid,
+                                   offsets, n_buckets)
     scores = rerank_jaccard(db_sigs, q_sigs, flat)
     sel_ids, sel_sc, n_match = threshold_select(scores, flat, cutoff, max_out)
     return sel_ids, sel_sc, n_match, trunc
 
 
 def topk_fused(sorted_fp, sorted_ids, db_sigs, q_sigs, b: int, r: int,
-               cap: int, k: int, n_valid=None):
-    """Top-k query: fingerprints -> band probes -> rerank (kernel 3) ->
-    dedupe top-k. Returns (top_ids, top_sc, truncated)."""
-    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid)
+               cap: int, k: int, offsets=None, n_buckets: int = 0, n_valid=None):
+    """Top-k query: fingerprints -> band probes (by direct address when
+    ``offsets`` is given) -> rerank (kernel 3) -> dedupe top-k. Returns
+    (top_ids, top_sc, truncated)."""
+    flat, trunc = _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid,
+                                   offsets, n_buckets)
     scores = rerank_jaccard(db_sigs, q_sigs, flat)
     top_ids, top_sc = topk_candidates(scores, flat, k, max_dup=b)
     return top_ids, top_sc, trunc

@@ -24,11 +24,13 @@ __all__ = [
     "MAX_HASH",
     "init_permutations",
     "perm_tensors",
+    "empty_signatures",
     "compute_signatures",
     "compute_signatures_ragged",
     "jaccard_pairwise",
     "jaccard_matrix",
     "merge_signatures",
+    "pad_token_hashes",
 ]
 
 
@@ -55,6 +57,29 @@ def init_permutations(seed: int, num_perm: int):
     a.setflags(write=False)
     b.setflags(write=False)
     return a, b
+
+
+def empty_signatures(batch: int, num_perm: int, device="cuda") -> torch.Tensor:
+    """Initial sketch state on ``device``: every slot MAX_HASH, as an
+    int32[batch, num_perm] tensor of uint32 bits."""
+    return torch.full((batch, num_perm), MAX_HASH - (1 << 32), dtype=torch.int32,
+                      device=device)
+
+
+def pad_token_hashes(hash_arrays, pad_multiple: int = 128):
+    """Host helper: ragged list of uint32 token-hash arrays -> padded batch.
+
+    Returns (hashes uint32[B, T], lengths int32[B]) with T padded up to a
+    multiple of ``pad_multiple`` (the JAX package's padded layout; the
+    port's signers read the flat ragged buffer instead).
+    """
+    lengths = np.array([len(h) for h in hash_arrays], dtype=np.int32)
+    max_len = max(1, int(lengths.max()) if len(lengths) else 1)
+    t = ((max_len + pad_multiple - 1) // pad_multiple) * pad_multiple
+    out = np.zeros((len(hash_arrays), t), dtype=np.uint32)
+    for i, h in enumerate(hash_arrays):
+        out[i, : len(h)] = h
+    return out, lengths
 
 
 def _as_tensors(permutations, device):

@@ -233,3 +233,45 @@ def test_scores_match_jax_at_widths_that_are_not_powers_of_two(p):
         want = jax_lsh.topk_scan(db, q, k, count_ge=jnp.float32(0.5))
         for g, w in zip(got, want):
             _eq(g, w)
+
+
+@pytest.mark.parametrize("n_buckets", [1, 64, 1000, 4096])
+def test_build_offsets_and_direct_lookup_match_jax(corpus, n_buckets):
+    """Half the fingerprints have bit 31 set: the bucket index is the
+    unsigned shift of the int64 fingerprint, as JAX shifts its uint32."""
+    db, q = corpus
+    _, (sf, si) = _tables(db)
+    assert bool((sf >= (1 << 31)).any())
+    jsf, jsi = jax_lsh.build_tables(jax_lsh.band_fingerprints(db, B, R))
+    off = lsh_ops.build_offsets(sf, n_buckets)
+    joff = jax_lsh.build_offsets(jsf, n_buckets)
+    _eq(off, joff)
+    qf = lsh_ops.band_fingerprints(_t(q), B, R)
+    jqf = jax_lsh.band_fingerprints(q, B, R)
+    for cap in (4, 64):
+        got = lsh_ops.query_tables_direct(sf, si, off, qf, cap, n_buckets)
+        want = jax_lsh.query_tables_direct(jsf, jsi, joff, jqf, cap, n_buckets)
+        for g, w in zip(got, want):
+            _eq(g, w)
+
+
+@pytest.mark.parametrize("n_buckets", [64, 4096])
+def test_fused_routes_by_direct_address_match_jax(corpus, n_buckets):
+    db, q = corpus
+    n_valid = db.shape[0] - 50
+    _, (sf, si) = _tables(db)
+    jsf, jsi = jax_lsh.build_tables(jax_lsh.band_fingerprints(db, B, R))
+    off, joff = lsh_ops.build_offsets(sf, n_buckets), jax_lsh.build_offsets(jsf, n_buckets)
+    tq, tdb = _t(q), _t(db)
+    got = lsh_ops.topk_fused(sf, si, tdb, tq, B, R, 16, 5, offsets=off,
+                             n_buckets=n_buckets, n_valid=n_valid)
+    want = jax_lsh.topk_fused(jsf, jsi, db, q, B, R, 16, 5, offsets=joff,
+                              n_buckets=n_buckets, n_valid=jnp.int32(n_valid))
+    for g, w in zip(got, want):
+        _eq(g, w)
+    got = lsh_ops.query_fused(sf, si, tdb, tq, B, R, 16, 0.5, 100, offsets=off,
+                              n_buckets=n_buckets)
+    want = jax_lsh.query_fused(jsf, jsi, db, q, B, R, 16, jnp.float32(0.5), 100,
+                               offsets=joff, n_buckets=n_buckets)
+    for g, w in zip(got, want):
+        _eq(g, w)

@@ -133,3 +133,17 @@ def test_bulk_signatures_rejects_unported_options():
         MinHash.bulk_signatures([[b"a"]], scheme="nope", device="cpu")
     with pytest.raises(ValueError):
         MinHash.bulk_signatures([[b"a"]], hashfunc="nope", device="cpu")
+
+
+def test_empty_signatures_and_pad_token_hashes_match_jax():
+    got = minhash_ops.empty_signatures(3, 7, device="cpu")
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(to_numpy_u32(got), np.asarray(jax_ops.empty_signatures(3, 7)))
+    rng = np.random.RandomState(3)
+    ragged = [rng.randint(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+              for n in (0, 5, 130, 1)]
+    for arrays, pad in ((ragged, 128), (ragged, 7), ([], 128), ([ragged[0]], 16)):
+        for g, w in zip(minhash_ops.pad_token_hashes(arrays, pad),
+                        jax_ops.pad_token_hashes(arrays, pad)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)

@@ -24,6 +24,7 @@ from datasketch_tpu_torch import (
     WeightedMinHashGenerator,
 )
 from datasketch_tpu_torch.device import resolve_device
+from datasketch_tpu_torch.utils import device_healthcheck
 from datasketch_tpu_torch.ops import knn_graph
 from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
 
@@ -49,10 +50,21 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "from datasketch_tpu_torch.models import hnsw, torch_hnsw",
         "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
         "from datasketch_tpu_torch.kernels import bbit, score",
-        "from datasketch_tpu_torch.utils import pipeline, profiling",
+        "from datasketch_tpu_torch.utils import pipeline, profiling, health",
+        "from datasketch_tpu_torch import storage, serving, aio, experimental",
+        "from datasketch_tpu_torch.aio import lsh as aio_lsh, storage as aio_storage",
+        "from datasketch_tpu_torch.experimental.aio import lsh as experimental_lsh",
+        "from datasketch_tpu_torch.models import lsh",
+        "from datasketch_tpu_torch import minhash, lean_minhash, weighted_minhash",
+        "from datasketch_tpu_torch import hyperloglog, b_bit_minhash, lshforest",
+        "from datasketch_tpu_torch import lshensemble, lshensemble_partition, lsh_bloom",
+        "from datasketch_tpu_torch import hnsw, torch_lsh, torch_ensemble",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'datasketch_tpu'))",
         "assert not bad, bad",
+        "clients = sorted(m for m in sys.modules if m.split('.')[0] in",
+        "                 ('redis', 'motor', 'cassandra', 'pymongo'))",
+        "assert not clients, clients",
         "assert not torch.cuda.is_initialized()",
         "print('clean')",
     ])
@@ -108,6 +120,15 @@ def test_cuda_without_a_card_raises():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_default_healthcheck_reports_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = device_healthcheck()
+    assert res["ok"] is False and res["latency_s"] is None
+    assert "no CUDA device" in res["error"]
+    assert not torch.cuda.is_initialized()
 
 
 def test_pre_hopper_card_raises(monkeypatch):

@@ -142,3 +142,18 @@ def test_smoke_hnsw_phases_on_cpu():
                                    hashfunc="device", out="device", device="cpu")
     smoke.phase_hnsw_m48(sigs)
     smoke.phase_hnsw_m48_check(sigs)
+
+
+def test_smoke_failover_and_host_lsh_phases_on_cpu():
+    """failover-1m and host-lsh-262k at a small size: the CPU stands in for
+    the card (its probe is a real subprocess probe of the CPU); the trip
+    probes a CUDA device this host does not have."""
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    real = smoke.phase_signatures(n_docs=400)
+    index, sigs, src, dst, near = smoke.phase_index(real, n_rows=4096)
+    smoke.phase_serving(index, sigs, src, dst, near, n_queries=48)
+    smoke.phase_failover(index, sigs, dst, n_queries=48, n_host=8)
+    assert smoke.failover["probe_latency_s"] is not None
+    assert set(smoke.failover["qps"]) >= {"host top_k k=10", "host query_batch 0.5"}
+    smoke.phase_host_lsh(index, sigs, near, n_rows=2048, n_async=400, n_queries=48)
+    assert smoke.host_lsh["offsets_queries_compared"] >= 40

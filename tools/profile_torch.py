@@ -5,11 +5,12 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 tools/profile_torch.py [CELL ...]
 
-CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
-``bbit-1m``, ``bbit-16m``, ``text-16k``, ``forest-1m``, ``hll``,
-``schemes``, ``bloom``, ``hnsw`` (default: all, in that order; ``lsh-1m``,
-``bbit-1m``, ``forest-1m`` and ``bloom`` index the signatures of
-``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
+CELL is one of ``sign-16k``, ``lsh-1m``, ``failover-1m``,
+``host-lsh-262k``, ``ensemble-1m``, ``weighted-1m``, ``bbit-1m``,
+``bbit-16m``, ``text-16k``, ``forest-1m``, ``hll``, ``schemes``, ``bloom``,
+``hnsw`` (default: all, in that order; ``lsh-1m``, ``failover-1m``,
+``host-lsh-262k``, ``bbit-1m``, ``forest-1m`` and ``bloom`` index the
+signatures of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
 ``torch.profiler`` (CPU and CUDA activity) over 3 calls after a warm one
 (builds: 1 call after a warm one):
@@ -18,6 +19,13 @@ CELL is one of ``sign-16k``, ``lsh-1m``, ``ensemble-1m``, ``weighted-1m``,
 - lsh-1m: the 1,048,576-row ``TorchMinHashLSH`` build, ``top_k`` k = 10 by
   scan and bands, threshold ``query_batch`` by bands and scan, ``top_k``
   k = 256 by scan, over 1,024 queries;
+- failover-1m: the lsh-1m index with 1,000 keys removed behind a
+  ``FailoverIndex``: its snapshot, ``top_k`` k = 10 by scan through the
+  wrapper on the device, then (tripped by a failed probe) the host scan's
+  ``top_k`` k = 10 and threshold ``query_batch`` of 16 queries;
+- host-lsh-262k: the first 262,144 lsh-1m rows in the host ``MinHashLSH``
+  (``insert_batch``, ``query_batch`` of 1,024 rows) and in a
+  ``rerank=False`` ``TorchMinHashLSH`` (``index``, ``query_batch``);
 - ensemble-1m: ``index_tokens`` of 1,048,576 sets, ``query_batch`` of
   1,024 subset queries by scan and bands;
 - weighted-1m: ``minhash_many`` of 1,048,576 CSR rows (kernel 7) and of the
@@ -69,7 +77,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("sign-16k", "lsh-1m", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
+CELLS = ("sign-16k", "lsh-1m", "failover-1m", "host-lsh-262k", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
          "text-16k", "forest-1m", "hll", "schemes", "bloom", "hnsw")
 
 
@@ -159,6 +167,55 @@ def profile_lsh(torch, chip_smoke, dev, real):
                  lambda m=method: index.query_batch(queries, return_scores=True, method=m))
     profiled(torch, "top_k k=%d scan" % chip_smoke.BIG_K,
              lambda: index.top_k(queries, chip_smoke.BIG_K, method="scan"))
+
+
+def profile_failover(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import FailoverIndex, TorchMinHashLSH
+    from datasketch_tpu_torch.utils import HealthMonitor
+
+    n, nq = chip_smoke.N_INDEX, chip_smoke.N_QUERIES
+    sigs, src, dst, _ = chip_smoke.synth_index(n, real)
+    index = TorchMinHashLSH(threshold=0.5, num_perm=chip_smoke.NUM_PERM, bucket_cap=128,
+                            device=dev)
+    index.index(range(n), sigs)
+    for key in dict.fromkeys(int(x) for x in src[-nq:][:chip_smoke.N_REMOVE]):
+        index.remove(key)
+    fo = FailoverIndex(index, monitor=HealthMonitor(max_failures=1), snapshot=False)
+    profiled(torch, "snapshot %d rows" % n, fo.refresh_snapshot, reps=1)
+    queries = sigs[dst[-nq:]]
+    profiled(torch, "wrapper top_k k=%d scan" % chip_smoke.TOP_K,
+             lambda: fo.top_k(queries, chip_smoke.TOP_K, method="scan"))
+    fo.monitor.device = "cuda:%d" % torch.cuda.device_count()
+    fo.check()
+    hq = queries[:chip_smoke.FO_HOST_QUERIES]
+    profiled(torch, "host top_k k=%d of %d" % (chip_smoke.TOP_K, len(hq)),
+             lambda: fo.top_k(hq, chip_smoke.TOP_K), reps=1)
+    profiled(torch, "host query_batch 0.5 of %d" % len(hq),
+             lambda: fo.query_batch(hq, return_scores=True), reps=1)
+
+
+def profile_host_lsh(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import MinHash, MinHashLSH, TorchMinHashLSH
+
+    n, nq = chip_smoke.HOST_LSH_ROWS, chip_smoke.N_QUERIES
+    rows = chip_smoke.synth_index(chip_smoke.N_INDEX, real)[0][:n]
+    objs = [MinHash(num_perm=chip_smoke.NUM_PERM, hashvalues=r) for r in rows]
+
+    def host_build():
+        host = MinHashLSH(threshold=0.5, num_perm=chip_smoke.NUM_PERM)
+        host.insert_batch(range(n), objs)
+        return host
+
+    def device_build():
+        ix = TorchMinHashLSH(threshold=0.5, num_perm=chip_smoke.NUM_PERM, rerank=False,
+                             bucket_cap=chip_smoke.HOST_LSH_CAP, device=dev)
+        ix.index(range(n), rows)
+        return ix
+
+    host = profiled(torch, "host insert_batch %d rows" % n, host_build, reps=1)
+    profiled(torch, "host query_batch %d" % nq, lambda: host.query_batch(objs[:nq]))
+    ix = profiled(torch, "rerank=False index %d rows" % n, device_build, reps=1)
+    profiled(torch, "rerank=False query_batch %d" % nq, lambda: ix.query_batch(rows[:nq]))
 
 
 def profile_ensemble(torch, chip_smoke, dev, smoke):
@@ -493,7 +550,8 @@ def main() -> int:
     smoke.phase_build()
     real = None
     for cell in CELLS:
-        needs_real = bool({"lsh-1m", "bbit-1m", "forest-1m", "bloom"} & set(cells))
+        needs_real = bool({"lsh-1m", "failover-1m", "host-lsh-262k", "bbit-1m", "forest-1m",
+                           "bloom"} & set(cells))
         if cell not in cells and not (cell == "sign-16k" and needs_real):
             continue
         print(json.dumps({"cell": cell}), flush=True)
@@ -501,6 +559,10 @@ def main() -> int:
             real = profile_sign(torch, chip_smoke, dev)
         elif cell == "lsh-1m":
             profile_lsh(torch, chip_smoke, dev, real)
+        elif cell == "failover-1m":
+            profile_failover(torch, chip_smoke, dev, real)
+        elif cell == "host-lsh-262k":
+            profile_host_lsh(torch, chip_smoke, dev, real)
         elif cell == "ensemble-1m":
             profile_ensemble(torch, chip_smoke, dev, smoke)
         elif cell == "weighted-1m":
