@@ -57,8 +57,11 @@ Phases (any failed check raises and the script exits non-zero):
     host answer a subset of the device's, the source in both, nothing
     truncated; 16,384 rows in an ``AsyncMinHashLSH`` on ``aiodict`` equal
     to the host class; on the served index's tables ``topk_fused`` by
-    direct address (``build_offsets``, kernel 3) equal to the binary search
-    for every query whose windows fit;
+    direct address (``build_offsets``, kernel 3); the launch counts are
+    read around these calls alone, then the checks run: the query docs
+    re-signed by kernel 1's plain twin equal the card's signatures, and
+    the direct route equals the binary search for every query whose
+    windows fit;
 7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one,
    and an index built from rows of a device tensor (a list, then single
    inserts) queried by lists of device rows against the batch index;
@@ -1064,7 +1067,6 @@ class Smoke:
         explicit failback."""
         torch = self.torch
         from datasketch_tpu_torch import FailoverIndex
-        from datasketch_tpu_torch.serving import _host_scores
         from datasketch_tpu_torch.utils import HealthMonitor
 
         queries = sigs[dst[-n_queries:]]
@@ -1147,8 +1149,8 @@ class Smoke:
             kth = d[-1][1]
             check({kk for kk, s in h if s > kth} == {kk for kk, s in d if s > kth},
                   "query %d: host and device ids above the k-th score differ" % qi)
-            scores = _host_scores(snap["sigs"], hq[qi], None)
-            check(all(scores[kk] == s for kk, s in h),
+            check(all(np.count_nonzero(snap["sigs"][kk] == hq[qi]) / NUM_PERM == s
+                      for kk, s in h),
                   "query %d: a host score is not its row's equal-slot share" % qi)
             check(not any(kk in gone for kk, _ in h), "the host path returned a removed key")
         for qi, (h, d) in enumerate(zip(host_thr, got["query_batch 0.5 scan"][:n_host])):
@@ -1167,7 +1169,7 @@ class Smoke:
     def host_lsh_queries(self, n_queries: int = N_QUERIES, replace: float = HOST_LSH_REPLACE):
         """Queries of host-lsh-262k: signature-corpus docs with a share of
         their tokens replaced, signed on the card (kernel 1); returns
-        (uint32[n, P] signatures, source rows)."""
+        (the docs, uint32[n, P] signatures, source rows)."""
         from datasketch_tpu_torch import MinHash
 
         rng = np.random.RandomState(31)
@@ -1180,18 +1182,18 @@ class Smoke:
             docs.append(doc)
         q = MinHash.bulk_signatures(docs, num_perm=NUM_PERM, seed=1, out="host",
                                     device=self.device)
-        return q, src
+        return docs, q, src
 
     def phase_host_lsh(self, index, sigs, near, n_rows: int = HOST_LSH_ROWS,
                        n_async: int = HOST_LSH_ASYNC_ROWS, n_queries: int = N_QUERIES):
         """host-lsh-262k: the host ``MinHashLSH`` over lsh-1m's first rows
-        against a ``rerank=False`` ``TorchMinHashLSH`` of the same rows
-        (host answers are subsets: fingerprint collisions only add), asked
-        by edited docs and by 16 of the near-copies of row 0 (hundreds of
-        candidates each),
-        ``AsyncMinHashLSH`` on ``aiodict`` over fewer rows against the host
-        class, and on lsh-1m's tables ``topk_fused`` by direct address
-        against the binary-search route. Times are host seconds."""
+        and a ``rerank=False`` ``TorchMinHashLSH`` of the same rows, asked
+        by edited docs signed on the card and by 16 of the near-copies of
+        row 0 (hundreds of candidates each), ``AsyncMinHashLSH`` on
+        ``aiodict`` over fewer rows, and on lsh-1m's tables ``topk_fused``
+        by direct address (``build_offsets``). The launch counts are read
+        around this phase; :meth:`phase_host_lsh_checks` follows it. Times
+        are host seconds."""
         import asyncio
 
         torch = self.torch
@@ -1199,7 +1201,7 @@ class Smoke:
         from datasketch_tpu_torch.ops import lsh_ops
 
         stats = {}
-        q, src = self.host_lsh_queries(n_queries)
+        docs, q, src = self.host_lsh_queries(n_queries)
         crowd = near[1:1 + HOST_LSH_NEAR]
         q, src = np.concatenate([q, sigs[crowd]]), np.concatenate([src, crowd])
         rows = sigs[:n_rows]
@@ -1224,17 +1226,6 @@ class Smoke:
         t0 = time.perf_counter()
         dev_ans = dev.query_batch(q)
         stats["device_query_s"] = time.perf_counter() - t0
-        check(dev.last_truncated == 0, "the device answers were truncated (%d)"
-              % dev.last_truncated)
-        check(min(len(a) for a in host_ans[-len(crowd):]) > 100,
-              "the near-copy queries found few candidates")
-        for qi, (h, d, s) in enumerate(zip(host_ans, dev_ans, src)):
-            check(set(h) <= set(d), "query %d: a host answer is not in the device answer" % qi)
-            check(int(s) in h and int(s) in d, "query %d: the planted source is missing" % qi)
-        stats["mean_candidates"] = [float(np.mean([len(a) for a in host_ans])),
-                                    float(np.mean([len(a) for a in dev_ans]))]
-        small = MinHashLSH(threshold=0.5, num_perm=NUM_PERM)
-        small.insert_batch(range(n_async), objs[:n_async])
 
         async def drive():
             async with AsyncMinHashLSH(threshold=0.5, num_perm=NUM_PERM) as lsh:
@@ -1247,22 +1238,61 @@ class Smoke:
                 return out, t1 - t0, time.perf_counter() - t1
 
         async_ans, stats["async_insert_s"], stats["async_query_s"] = asyncio.run(drive())
-        want = small.query_batch(q_objs)
-        check([sorted(a) for a in async_ans] == [sorted(w) for w in want],
-              "AsyncMinHashLSH answers differ from the host MinHashLSH's")
-        check(any(want), "no async query found a candidate")
-        # direct addressing on lsh-1m's tables, against the binary search
+        # direct addressing on lsh-1m's tables
         n_buckets = 1 << max(int(index._sorted_fp.shape[1] - 1).bit_length(), 0)
         qt = torch.from_numpy(sigs[-n_queries:].view(np.int32)).to(self.device)
-        args = (index._sorted_fp, index._sorted_ids, index._sigs, qt, index.b, index.r,
-                index.bucket_cap, TOP_K)
         self.sync()
         t0 = time.perf_counter()
         offsets = lsh_ops.build_offsets(index._sorted_fp, n_buckets)
         self.sync()
         stats["offsets_s"] = time.perf_counter() - t0
-        direct = lsh_ops.topk_fused(*args, offsets=offsets, n_buckets=n_buckets)
-        search = lsh_ops.topk_fused(*args)
+        direct = lsh_ops.topk_fused(index._sorted_fp, index._sorted_ids, index._sigs, qt,
+                                    index.b, index.r, index.bucket_cap, TOP_K,
+                                    offsets=offsets, n_buckets=n_buckets)
+        self.sync()
+        self.host_lsh = stats
+        return {"docs": docs, "q": q, "src": src, "objs": objs, "q_objs": q_objs,
+                "host_ans": host_ans, "dev": dev, "dev_ans": dev_ans,
+                "n_crowd": len(crowd), "async_ans": async_ans, "qt": qt, "offsets": offsets,
+                "n_buckets": n_buckets, "direct": direct}
+
+    def phase_host_lsh_checks(self, index, path, n_async: int = HOST_LSH_ASYNC_ROWS) -> None:
+        """host-lsh-262k's checks, after its launch counts are read: the
+        query docs signed by kernel 1's plain twin equal the card's
+        signatures; every host answer a subset of the device's
+        (fingerprint collisions only add) with the source in both and
+        nothing truncated; the async answers equal to the host class's on
+        the same rows; and the direct-address ``topk_fused`` equal to the
+        binary-search route for every query whose window fits on both."""
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash, MinHashLSH
+        from datasketch_tpu_torch.ops import lsh_ops
+
+        stats = self.host_lsh
+        docs, q, src = path["docs"], path["q"], path["src"]
+        host_ans, dev_ans = path["host_ans"], path["dev_ans"]
+        plain = MinHash.bulk_signatures(docs, num_perm=NUM_PERM, seed=1, out="host",
+                                        device="cpu")
+        check(np.array_equal(plain, q[:len(docs)]),
+              "host-lsh-262k: kernel 1's query signatures differ from the plain signer's")
+        check(path["dev"].last_truncated == 0, "the device answers were truncated (%d)"
+              % path["dev"].last_truncated)
+        check(min(len(a) for a in host_ans[-path["n_crowd"]:]) > 100,
+              "the near-copy queries found few candidates")
+        for qi, (h, d, s) in enumerate(zip(host_ans, dev_ans, src)):
+            check(set(h) <= set(d), "query %d: a host answer is not in the device answer" % qi)
+            check(int(s) in h and int(s) in d, "query %d: the planted source is missing" % qi)
+        stats["mean_candidates"] = [float(np.mean([len(a) for a in host_ans])),
+                                    float(np.mean([len(a) for a in dev_ans]))]
+        small = MinHashLSH(threshold=0.5, num_perm=NUM_PERM)
+        small.insert_batch(range(n_async), path["objs"][:n_async])
+        want = small.query_batch(path["q_objs"])
+        check([sorted(a) for a in path["async_ans"]] == [sorted(w) for w in want],
+              "AsyncMinHashLSH answers differ from the host MinHashLSH's")
+        check(any(want), "no async query found a candidate")
+        qt, offsets, n_buckets = path["qt"], path["offsets"], path["n_buckets"]
+        search = lsh_ops.topk_fused(index._sorted_fp, index._sorted_ids, index._sigs, qt,
+                                    index.b, index.r, index.bucket_cap, TOP_K)
         q_t = lsh_ops.band_fingerprints(qt, index.b, index.r).T.contiguous()
         run = (torch.searchsorted(index._sorted_fp, q_t, side="right")
                - torch.searchsorted(index._sorted_fp, q_t, side="left"))
@@ -1270,13 +1300,13 @@ class Smoke:
         window = offsets.gather(1, bk + 1) - offsets.gather(1, bk)
         fits = ((run <= index.bucket_cap) & (window <= index.bucket_cap)).all(dim=0)
         check(float(fits.float().mean()) >= 0.5, "only %d of %d queries fit their windows"
-              % (int(fits.sum()), n_queries))
-        for a, b in zip(direct[:2], search[:2]):
+              % (int(fits.sum()), qt.shape[0]))
+        for a, b in zip(path["direct"][:2], search[:2]):
             check(torch.equal(a[fits], b[fits]),
                   "topk_fused by direct address differs from the binary search")
         stats["offsets_queries_compared"] = int(fits.sum())
-        self.host_lsh = stats
-        log("[host-lsh-262k] %d rows (host seconds): %s" % (n_rows, json.dumps(stats)))
+        log("[host-lsh-262k] %d rows (host seconds): %s; %d query signatures equal to the "
+            "plain signer's" % (len(path["objs"]), json.dumps(stats), len(docs)))
 
     def phase_facade_parity(self, sigs: np.ndarray, n_rows: int = PARITY_ROWS,
                             n_queries: int = PARITY_QUERIES) -> None:
@@ -3253,9 +3283,11 @@ def main() -> int:
         log("[launches] failover-1m path (the device calls alone): %s"
             % json.dumps(fo_counts))
         zero_counts()
-        smoke.phase_host_lsh(index, sigs, near)
+        hl_path = smoke.phase_host_lsh(index, sigs, near)
         torch.cuda.synchronize()
         hl_counts = counts()
+        smoke.phase_host_lsh_checks(index, hl_path)
+        del hl_path
         log("[host-lsh-262k] %s" % nvidia_smi_line())
         log("[launches] host-lsh-262k path: %s" % json.dumps(hl_counts))
         for kname in HOST_LSH_PATH:

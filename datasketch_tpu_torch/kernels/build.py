@@ -16,7 +16,8 @@ them.
 Every C entry point takes its pointers and the CUDA stream as
 ``void*``, launches on that stream (the caller passes torch's current
 stream), and returns ``cudaGetLastError()``; :func:`check` raises when it
-is not 0.
+is not 0. A kernel that cannot be built or launched raises
+:class:`KernelError`, which callers must not take for a bad card.
 """
 
 from __future__ import annotations
@@ -77,11 +78,16 @@ def _sources():
     )
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, to fit on an SM or to launch: a fault of
+    the program, not of the card."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
         "CUDA kernels are compiled from datasketch_tpu_torch/csrc at first use"
     )
@@ -107,7 +113,7 @@ def _build() -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode, build_log))
+        raise KernelError("nvcc failed (%d):\n%s" % (proc.returncode, build_log))
     with open(out + ".log", "w") as fh:
         fh.write(build_log)
     os.replace(tmp, out)
@@ -133,7 +139,7 @@ def library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
-        raise RuntimeError("%s failed: CUDA error %d" % (name, err))
+        raise KernelError("%s failed: CUDA error %d" % (name, err))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -53,6 +53,6 @@ def blocks_per_sm(lib, entry: str, dev, *shape: int) -> int:
         with torch.cuda.device(dev):
             build.check(getattr(lib, entry)(*shape, ctypes.addressof(out)), entry)
         if out.value < 1:
-            raise RuntimeError("%s: the kernel does not fit on an SM at %s" % (entry, shape))
+            raise build.KernelError("%s: the kernel does not fit on an SM at %s" % (entry, shape))
         _blocks_per_sm_cache[key] = out.value
     return _blocks_per_sm_cache[key]

@@ -10,10 +10,16 @@ snapshot of the signature matrix:
 
 - while the monitor reports healthy, queries go to the device path
   (banded probe / exact scan on the card);
-- once the monitor trips (or a device dispatch raises an error that is
-  not the caller's), queries are answered from the snapshot by an exact
-  host scan: slower, but exact over the stored sketches, and it makes no
-  CUDA call at all.
+- once the monitor trips, queries are answered from the snapshot by an
+  exact host scan: slower, but exact over the stored sketches, and it
+  makes no CUDA call at all.
+
+Only a failed probe trips the monitor. A device dispatch that raises an
+error that is neither the caller's nor a kernel's (``KernelError``: a
+build or launch failure) runs one probe through the monitor; if that
+leaves the monitor unhealthy the query is answered from the host, and
+otherwise the error is raised. A card that probes healthy never moves
+the work to the host, so a fault of the program always surfaces.
 
 Every answer records the path that gave it (``last_path``), and
 ``status()`` reports ``serving_from_host``. The monitor must run
@@ -29,12 +35,12 @@ process on a flapping card.
 
 from __future__ import annotations
 
-import time
 from typing import Hashable, Optional
 
 import numpy as np
 import torch
 
+from datasketch_tpu_torch.kernels.build import KernelError
 from datasketch_tpu_torch.models.torch_lsh import _host_rows
 from datasketch_tpu_torch.ops.cws_ops import kt_slots_np
 from datasketch_tpu_torch.utils.health import HealthMonitor
@@ -135,8 +141,8 @@ class FailoverIndex:
         self._index = index
         self.monitor = monitor if monitor is not None else HealthMonitor()
         self._snapshot: Optional[dict] = None
-        self._forced_host = False
         self.last_path: Optional[str] = None
+        self.last_device_error: Optional[str] = None
         if snapshot:
             self.refresh_snapshot()
 
@@ -155,21 +161,21 @@ class FailoverIndex:
 
     @property
     def serving_from_host(self) -> bool:
-        return self._forced_host or self.monitor.unhealthy
+        return self.monitor.unhealthy
 
     def resume_device(self) -> None:
         """Explicit failback to the device path after recovery."""
-        self._forced_host = False
         self.monitor.consecutive_failures = 0
 
-    def _note_device_failure(self, exc: Exception) -> None:
-        self.monitor.consecutive_failures += 1
-        self.monitor.last_result = {
-            "ok": False, "latency_s": None, "error": repr(exc),
-        }
-        # keep status()'s history consistent with the counters
-        self.monitor.history.append((time.time(), False, None))
-        self._forced_host = True
+    def _trips(self, exc: Exception) -> bool:
+        """Whether a device-path error moves this query to the host: only
+        when one probe through the monitor leaves it unhealthy. Caller and
+        kernel errors re-raise without a probe."""
+        if self._is_caller_error(exc) or isinstance(exc, KernelError):
+            return False
+        self.last_device_error = repr(exc)
+        self.monitor.check()
+        return self.monitor.unhealthy
 
     @staticmethod
     def _is_caller_error(exc: Exception) -> bool:
@@ -200,10 +206,9 @@ class FailoverIndex:
             try:
                 self.last_path = "device"
                 return self._index.top_k(minhashes, k, **kwargs)
-            except Exception as exc:  # noqa: BLE001 — fail over, not crash
-                if self._is_caller_error(exc):
+            except Exception as exc:  # noqa: BLE001 — a bad card fails over
+                if not self._trips(exc):
                     raise
-                self._note_device_failure(exc)
         self.last_path = "host"
         return_scores = kwargs.get("return_scores", True)
         snap = self._require_snapshot()
@@ -231,10 +236,9 @@ class FailoverIndex:
                     minhashes, threshold=threshold,
                     return_scores=return_scores, **kwargs
                 )
-            except Exception as exc:  # noqa: BLE001 — fail over, not crash
-                if self._is_caller_error(exc):
+            except Exception as exc:  # noqa: BLE001 — a bad card fails over
+                if not self._trips(exc):
                     raise
-                self._note_device_failure(exc)
         self.last_path = "host"
         snap = self._require_snapshot()
         cutoff = self._index.threshold if threshold is None else threshold
@@ -271,6 +275,7 @@ class FailoverIndex:
         return {
             "serving_from_host": self.serving_from_host,
             "last_path": self.last_path,
+            "last_device_error": self.last_device_error,
             "snapshot_rows": None if snap is None else int(snap["sigs"].shape[0]),
             "monitor": self.monitor.status(),
         }

@@ -2,8 +2,8 @@
 package's. A ``device="cpu"`` TorchMinHashLSH loaded from a JAX
 ``TpuMinHashLSH.save`` file answers as the JAX FailoverIndex does on both
 paths (ids, scores and tie order); the host path takes uint32 slots with
-the top bit set; a device failure trips the wrapper, a caller error does
-not, and failback is explicit."""
+the top bit set; a device error trips the wrapper only through a failed
+probe, caller and kernel errors raise, and failback is explicit."""
 
 import numpy as np
 import pytest
@@ -14,6 +14,8 @@ import datasketch_tpu_torch as T
 from datasketch_tpu import serving as jax_serving
 from datasketch_tpu.utils.health import HealthMonitor as JaxMonitor
 from datasketch_tpu_torch import serving
+from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.kernels.build import KernelError
 from datasketch_tpu_torch.utils.health import HealthMonitor
 
 P = 128
@@ -173,21 +175,36 @@ class _StubIndex:
 
 
 def test_trips_on_device_errors_only_and_fails_back_explicitly():
+    """A device error trips the wrapper only through a failed probe: on a
+    card that probes healthy it raises, as kernel and caller errors always
+    do, and the host answers only once a real probe of a missing device
+    has failed."""
     sigs = _corpus(32, 5)
     index = _StubIndex(sigs, RuntimeError("CUDA error: an illegal memory access"))
-    fo = T.FailoverIndex(index, monitor=HealthMonitor(max_failures=3))
+    fo = T.FailoverIndex(index, monitor=HealthMonitor(max_failures=1, device="cpu",
+                                                      isolate=False))
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        fo.top_k(sigs[:2], k=1)
+    assert not fo.serving_from_host and fo.status()["monitor"]["checks"] == 1
+    assert "illegal memory access" in fo.status()["last_device_error"]
+    with pytest.raises(KernelError, match="CUDA error 700"):
+        build.check(700, "ds_topk_scan")
+    for exc in (KernelError("nvcc failed (1)"), ValueError("bad query")):
+        index.exc = exc
+        with pytest.raises(type(exc)):
+            fo.query_batch(sigs[:2])
+        assert not fo.serving_from_host and fo.status()["monitor"]["checks"] == 1
+    index.exc = RuntimeError("CUDA error: unspecified launch failure")
+    fo.monitor.device = "cuda:%d" % torch.cuda.device_count()  # no such card
     rows = fo.top_k(sigs[:2], k=1)
     assert fo.last_path == "host" and fo.serving_from_host
     assert rows == [[(0, 1.0)], [(1, 1.0)]]
-    assert fo.monitor.consecutive_failures == 1 and fo.status()["monitor"]["checks"] == 1
+    assert fo.monitor.consecutive_failures == 1 and fo.status()["monitor"]["checks"] == 2
+    assert "launch failure" in fo.status()["last_device_error"]
     index.exc = None
     assert fo.top_k(sigs[:2], k=1) == rows  # stays on the host until resumed
     fo.resume_device()
     assert fo.top_k(sigs[:2], k=1) == [[("device", 1.0)]] and fo.last_path == "device"
-    index.exc = ValueError("bad query")
-    with pytest.raises(ValueError):
-        fo.query_batch(sigs[:2])
-    assert not fo.serving_from_host
     fo2 = T.FailoverIndex(index, monitor=_scripted(HealthMonitor)([False]), snapshot=False)
     fo2.check()
     with pytest.raises(RuntimeError, match="refresh_snapshot"):

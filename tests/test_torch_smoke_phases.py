@@ -155,5 +155,6 @@ def test_smoke_failover_and_host_lsh_phases_on_cpu():
     smoke.phase_failover(index, sigs, dst, n_queries=48, n_host=8)
     assert smoke.failover["probe_latency_s"] is not None
     assert set(smoke.failover["qps"]) >= {"host top_k k=10", "host query_batch 0.5"}
-    smoke.phase_host_lsh(index, sigs, near, n_rows=2048, n_async=400, n_queries=48)
+    path = smoke.phase_host_lsh(index, sigs, near, n_rows=2048, n_async=400, n_queries=48)
+    smoke.phase_host_lsh_checks(index, path, n_async=400)
     assert smoke.host_lsh["offsets_queries_compared"] >= 40
