@@ -4,7 +4,8 @@ its host failover and the host LSH classes, LSH Ensemble containment
 serving, weighted MinHash (CWS) serving, b-bit MinHash serving, the
 raw-text front ends, LSH Forest serving, the rest of the LSH facade, the
 per-object MinHash API, HyperLogLog, the OPH and C-MinHash schemes,
-LSHBloom and HNSW.
+LSHBloom, HNSW, and the sharded classes of ``parallel/`` on a mesh of
+positions on the card and across child processes.
 
 Usage, from the root of a checkout, on a machine with one CUDA card of
 capability >= 9.0 (Hopper):
@@ -168,7 +169,41 @@ Phases (any failed check raises and the script exits non-zero):
     card and on the CPU, equal;
 24. hnsw m 48: 8,192 signature rows whose 144 candidates a node take kernel
     4's route (its launches read around the build alone), equal to the
-    plain tiles.
+    plain tiles;
+25. sharded-lsh-1m (after phase 6b): the served index's 1,048,576 device rows
+    in a ``ShardedMinHashLSH(threshold 0.5)`` over 4 mesh positions on the
+    card, the served index's 1,000 removals, the 1,024 queries by ``top_k``
+    k 10 (scan, bands, auto) and k 256 (scan), ``query_batch`` 0.5 (bands,
+    scan), ``top_k_stream``, ``compact``, ``status``, ``save`` and ``load``
+    onto 2 positions, kernels 2, 3 and 4 counted around it; then the scans
+    against the unsharded index (score columns, ids above the k-th score,
+    threshold lists while nothing is truncated), the bands against the same
+    class on the CPU over 65,536 rows (answers and ``last_truncated``), the
+    reloaded index's answers, and ``FailoverIndex`` over the sharded index
+    (device path, a real failed probe, 16 host answers equal the device's);
+26. sharded-sketch: ``sharded_compute_signatures`` of sign-16k's corpus on a
+    (2, 2) mesh (kernel 1 per block) against ``MinHash.bulk_signatures`` and
+    the plain signer, ``distributed_minhash_union`` and
+    ``distributed_hll_union`` over the 4 positions against numpy's min and
+    max;
+27. sharded-bbit, sharded-forest, sharded-bloom: ``ShardedBBitIndex`` b 1 and
+    ``ShardedMinHashLSHForest`` (l 8, cap 64) over lsh-1m's rows,
+    ``ShardedMinHashLSHBloom`` (n 100M, fp 0.01) holding its first 262,144,
+    each over 4 positions with 1,024 queries, its launches read around it,
+    then the same class on the card and on the CPU at a cut size, equal;
+28. sharded-2proc: two child processes (``chip_smoke.py --sharded-worker``)
+    in a gloo group, 2 positions each on the card, over host-lsh-262k's rows:
+    collectives, a ``ShardedMinHashLSH`` equal to the 4-position mesh in one
+    process, save -> barrier -> load onto 3 positions; then one child in a
+    one-rank NCCL group (``distributed_minhash_union``, one ``top_k``);
+29. sharded-ensemble (after phase 9's path): ``ShardedMinHashLSHEnsemble``
+    (threshold 0.8, 8 partitions) over 4 positions by ``index_tokens`` of
+    ensemble-1m's sets, its queries by scan and bands, then the card against
+    the CPU at 8,192 sets;
+30. sharded-hnsw (after phase 24): ``ShardedHNSW(minhash_jaccard, m 16, ef
+    64)`` over 4 positions by ``index_tokens`` of hnsw-1m's first 262,144
+    sets (4 graphs of 65,536), 1,024 members as queries, then the card
+    against the CPU at 4,096 sets.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a usable card, or outside a
@@ -264,6 +299,10 @@ HOST_LSH_ASYNC_ROWS = 1 << 14
 HOST_LSH_CAP = 512  # above the 300 near-copies of row 0: no truncation
 HOST_LSH_REPLACE = 0.02  # share of a query doc's tokens replaced (Jaccard ~0.96)
 HOST_LSH_NEAR = 16  # near-copies of row 0 among the queries
+SH_POSITIONS = 4  # mesh positions of the sharded phases, all on one card
+SH_HLL_ROWS = 4096  # register rows of sharded-sketch's HLL union
+SH_HNSW_SETS = 1 << 18  # hnsw-1m's first sets in the sharded HNSW: 4 shards of 65,536
+SH_HNSW_PARITY_SETS = 4096  # held against the same class on the CPU
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
@@ -351,6 +390,12 @@ HNSW_PATH = ("minhash_sign", "topk_scan")
 HNSW_M48_PATH = ("score_matrix",)
 FAILOVER_PATH = ("topk_scan", "rerank", "score_matrix")
 HOST_LSH_PATH = ("minhash_sign", "rerank")
+SHARDED_LSH_PATH = ("topk_scan", "rerank", "score_matrix")
+SHARDED_SKETCH_PATH = ("minhash_sign",)
+SHARDED_BBIT_PATH = ("bbit_scores",)
+SHARDED_FOREST_PATH = ("topk_scan", "rerank", "score_matrix")
+SHARDED_ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
+SHARDED_HNSW_PATH = ("minhash_sign", "topk_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -381,6 +426,7 @@ class Smoke:
                                    "bound_ms": None, "bound_by": None, "library_ms": None}
                        for k in KERNELS}
         self.bbit = {}  # b -> the bbit-1m figures
+        self.sharded_idx = {}  # the sharded indexes' figures
         self.int_rate = int_rate(torch, self.device)
 
     # ----------------------------------------------------------- helpers
@@ -2893,6 +2939,508 @@ class Smoke:
               "m 48: kernel 4's kNN rows differ from the plain tiles'")
         log("[hnsw-m48] kernel 4's kNN rows equal the plain tiles'")
 
+    # ------------------------------------------------------------- sharded
+
+    def mesh(self, n: int = SH_POSITIONS, shape=None, device=None):
+        """A mesh of ``n`` positions sharing this run's device (or
+        ``device``): one card standing in for several, as the JAX tests'
+        virtual CPU devices do. Default shape (n, 1): n document shards."""
+        from datasketch_tpu_torch.parallel import make_mesh
+
+        return make_mesh(n, shape=shape or (n, 1), device=device or self.device)
+
+    def same_topk(self, label: str, got, want) -> None:
+        """Top-k rows held as failover-1m holds host against device: score
+        columns equal and the ids above each row's k-th score equal."""
+        check(len(got) == len(want), "%s: %d rows vs %d" % (label, len(got), len(want)))
+        for qi, (g, w) in enumerate(zip(got, want)):
+            check([s for _, s in g] == [s for _, s in w],
+                  "%s: query %d's score column differs" % (label, qi))
+            if w:
+                kth = w[-1][1]
+                check({k for k, s in g if s > kth} == {k for k, s in w if s > kth},
+                      "%s: query %d's ids above the k-th score differ" % (label, qi))
+
+    def phase_sharded_lsh(self, index, sigs: np.ndarray, dst, n_queries: int = N_QUERIES):
+        """sharded-lsh-1m: the served index's rows (its device signatures,
+        no host round trip) in a ``ShardedMinHashLSH(threshold 0.5)`` over 4
+        positions on the card, the served index's 1,000 removals, then the
+        1,024 queries by ``top_k`` k 10 (scan, bands, auto) and k 256 (scan),
+        ``query_batch`` at 0.5 (bands, scan), ``top_k_stream``, ``compact``,
+        ``status``, ``save`` and ``load`` onto a 2-position mesh. The launch
+        counts are read around this path; its checks follow in
+        :meth:`phase_sharded_lsh_checks`."""
+        from datasketch_tpu_torch.parallel import ShardedMinHashLSH
+
+        n = index._n_real
+        queries = sigs[dst[-n_queries:]]
+        mesh = self.mesh()
+        self.sync()
+        t0 = time.perf_counter()
+        sh = ShardedMinHashLSH(mesh, threshold=0.5, num_perm=NUM_PERM, bucket_cap=128)
+        sh.index(range(n), index._sigs)
+        self.sync()
+        stats = {"build_s": time.perf_counter() - t0, "qps": {}, "truncated": {}}
+        for key in sorted(self.removed):
+            sh.remove(key)
+        calls = [("top_k k=%d %s" % (TOP_K, m), lambda m=m: sh.top_k(queries, TOP_K, method=m))
+                 for m in ("scan", "bands", "auto")]
+        calls.append(("top_k k=%d scan" % BIG_K,
+                      lambda: sh.top_k(queries, BIG_K, method="scan")))
+        calls += [("query_batch 0.5 %s" % m,
+                   lambda m=m: sh.query_batch(queries, return_scores=True, method=m))
+                  for m in ("bands", "scan")]
+        answers = {}
+        for label, fn in calls:
+            stats["qps"][label], answers[label] = self.timed_qps(fn, n_queries)
+            stats["truncated"][label] = sh.last_truncated
+            log("[sharded-lsh-1m] %-22s %10.1f q/s truncated %d"
+                % (label, stats["qps"][label], sh.last_truncated))
+        batches = [queries[i: i + n_queries // 4] for i in range(0, n_queries, n_queries // 4)]
+        answers["stream"] = [r for b in sh.top_k_stream(batches, TOP_K, depth=4) for r in b]
+        self.sync()
+        t0 = time.perf_counter()
+        sh.compact()
+        self.sync()
+        stats["compact_s"] = time.perf_counter() - t0
+        stats["status"] = sh.status()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            sh.save(os.path.join(tmp, "sharded"))
+            stats["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = ShardedMinHashLSH.load(os.path.join(tmp, "sharded.npz"),
+                                            self.mesh(2))
+            stats["load_s"] = time.perf_counter() - t0
+        self.sharded_lsh = stats
+        return sh, loaded, queries, answers
+
+    def phase_sharded_lsh_checks(self, index, sigs: np.ndarray, sh, loaded, queries, answers,
+                                 parity_rows: int = PARITY_ROWS,
+                                 parity_queries: int = PARITY_QUERIES,
+                                 n_host: int = FO_HOST_QUERIES) -> None:
+        """sharded-lsh-1m's checks, after its launch counts are read: the
+        scans against the served (unsharded) index over the same rows, the
+        bands against the same sharded class on the CPU at ``parity_rows``
+        rows, the reloaded index, and ``FailoverIndex`` over the sharded
+        index (device path, a real failed probe, host answers)."""
+        torch = self.torch
+        from datasketch_tpu_torch import FailoverIndex
+        from datasketch_tpu_torch.parallel import ShardedMinHashLSH
+        from datasketch_tpu_torch.utils import HealthMonitor
+
+        st = self.sharded_lsh
+        gone = self.removed
+        check(st["status"]["n_live"] == index._n_real - len(gone) and
+              st["status"]["n_shards"] == 4 and st["status"]["n_tombstoned"] == 0,
+              "sharded-lsh-1m status %s" % json.dumps(st["status"]))
+        for k in (TOP_K, BIG_K):
+            label = "top_k k=%d scan" % k
+            self.same_topk("sharded-lsh-1m " + label, answers[label],
+                           index.top_k(queries, k, method="scan"))
+        check(answers["top_k k=%d auto" % TOP_K] == answers["top_k k=%d scan" % TOP_K],
+              "sharded-lsh-1m: auto did not answer as the scan")
+        check(answers["stream"] == answers["top_k k=%d auto" % TOP_K],
+              "sharded-lsh-1m: top_k_stream answers otherwise than top_k")
+        want = index.query_batch(queries, return_scores=True, method="scan")
+        if st["truncated"]["query_batch 0.5 scan"] == 0 and index.last_truncated == 0:
+            check(answers["query_batch 0.5 scan"] == want,
+                  "sharded-lsh-1m: threshold scan lists differ from the unsharded index's")
+        check(not any(k in gone for rows in answers.values() for r in rows for k, _ in r),
+              "sharded-lsh-1m: a removed key came back")
+        # the bands against the same class on the CPU at a cut size
+        rows = index._sigs[:parity_rows]
+        pq = sigs[np.arange(0, parity_rows, parity_rows // parity_queries)]
+        pair = [ShardedMinHashLSH(self.mesh(device=d), threshold=0.5, num_perm=NUM_PERM,
+                                  bucket_cap=128) for d in (self.device, "cpu")]
+        for ix in pair:
+            ix.index(range(parity_rows), rows.to(ix.mesh.home))
+            ix.remove(3)
+        for label, call in (("top_k bands", lambda ix: ix.top_k(pq, TOP_K, method="bands")),
+                            ("query_batch bands", lambda ix: ix.query_batch(
+                                pq, return_scores=True, method="bands")),
+                            ("query_batch 0.3 bands", lambda ix: ix.query_batch(
+                                pq, threshold=0.3, method="bands"))):
+            a, b = call(pair[0]), call(pair[1])
+            check(a == b and pair[0].last_truncated == pair[1].last_truncated,
+                  "sharded-lsh-1m %s: the card (truncated %d) and the CPU (truncated %d) "
+                  "differ" % (label, pair[0].last_truncated, pair[1].last_truncated))
+        del pair
+        # the reloaded index
+        check(loaded.n_shards == 2 and len(loaded) == len(sh), "the reloaded index holds %d "
+              "rows on %d shards" % (len(loaded), loaded.n_shards))
+        check(loaded.top_k(queries, TOP_K, method="scan") == sh.top_k(queries, TOP_K,
+                                                                       method="scan"),
+              "sharded-lsh-1m: the reloaded index's scan answers differ")
+        check(loaded.query_batch(queries, method="scan") == sh.query_batch(queries,
+                                                                           method="scan"),
+              "sharded-lsh-1m: the reloaded index's threshold answers differ")
+        # FailoverIndex over the sharded index
+        fo = FailoverIndex(sh, monitor=HealthMonitor(max_failures=1, device=self.device))
+        probe = fo.check()
+        check(probe["ok"], "sharded-lsh-1m: the probe of a healthy card failed: %s" % probe)
+        hq = queries[:n_host]
+        dev_top = fo.top_k(hq, TOP_K, method="scan")
+        dev_thr = fo.query_batch(hq, return_scores=True, method="scan")
+        check(fo.last_path == "device" and dev_top == sh.top_k(hq, TOP_K, method="scan"),
+              "sharded-lsh-1m: the wrapper's device path answers otherwise")
+        fo.monitor.device = "cuda:%d" % torch.cuda.device_count()
+        tripped = fo.check()
+        fo.monitor.device = self.device
+        check(not tripped["ok"] and fo.serving_from_host,
+              "sharded-lsh-1m: a failed probe did not trip the wrapper: %s" % tripped)
+        host_top = fo.top_k(hq, TOP_K)
+        host_thr = fo.query_batch(hq, return_scores=True)
+        check(fo.last_path == "host", "a tripped wrapper answered from the device")
+        self.same_topk("sharded-lsh-1m host top_k", host_top, dev_top)
+        check(host_thr == dev_thr, "sharded-lsh-1m: host and device threshold answers differ")
+        check(not any(k in gone for r in host_top + host_thr for k, _ in r),
+              "sharded-lsh-1m: the host path returned a removed key")
+        fo.resume_device()
+        check(fo.top_k(hq, TOP_K, method="scan") == dev_top and fo.last_path == "device",
+              "sharded-lsh-1m: resume_device() did not return to the device")
+        log("[sharded-lsh-1m] %d rows over 4 positions of one %s: build %.3f s, compact %.3f "
+            "s, save %.2f s, load onto 2 positions %.2f s; scans equal the unsharded index's "
+            "(score columns, ids above the k-th), the bands equal a device='cpu' sharded index "
+            "over %d rows (answers, last_truncated), the reloaded index answers alike, "
+            "FailoverIndex: device, a real failed probe, %d host answers equal the device's"
+            % (index._n_real, self.device.type, st["build_s"], st["compact_s"], st["save_s"],
+               st["load_s"], parity_rows, n_host))
+
+    def phase_sharded_sketch(self, n_docs: int = SIG_DOCS, hll_rows: int = SH_HLL_ROWS):
+        """sharded-sketch: ``sharded_compute_signatures`` of sign-16k's
+        corpus on a (2, 2) mesh (kernel 1 per block), equal to
+        ``MinHash.bulk_signatures`` and to the plain signer; then
+        ``distributed_minhash_union`` and ``distributed_hll_union`` over the
+        4 positions, equal to numpy's min and max."""
+        torch = self.torch
+        from datasketch_tpu_torch import native
+        from datasketch_tpu_torch.parallel import (
+            distributed_hll_union,
+            distributed_minhash_union,
+            sharded_compute_signatures,
+        )
+
+        corpus = self.sig_corpus[:n_docs]
+        flat, lengths = native.hash_ragged(corpus)
+        width = int(lengths.max())
+        hashes = np.zeros((n_docs, width), dtype=np.uint32)
+        hashes[np.arange(width)[None, :] < lengths[:, None]] = flat
+        mesh = self.mesh(4, shape=(2, 2))
+        hashes_dev = torch.from_numpy(hashes.view(np.int32)).to(self.device)
+        lengths_dev = torch.from_numpy(lengths).to(self.device)
+        self.sync()
+        t0 = time.perf_counter()
+        sh = sharded_compute_signatures(hashes_dev, lengths_dev, seed=1, num_perm=NUM_PERM,
+                                        mesh=mesh)
+        full = sh.full()
+        self.sync()
+        sign_s = time.perf_counter() - t0
+        union = distributed_minhash_union(sh, mesh)
+        g = torch.Generator(device=self.device).manual_seed(17)
+        regs = torch.randint(0, 50, (hll_rows, 1 << 14), generator=g, device=self.device,
+                             dtype=torch.int8)
+        merged = distributed_hll_union(regs, mesh)
+        self.sync()
+        self.sharded_sketch = {"docs_per_s": n_docs / sign_s}
+        return full, union, regs, merged, flat, lengths
+
+    def phase_sharded_sketch_checks(self, full, union, regs, merged, flat, lengths) -> None:
+        torch = self.torch
+        from datasketch_tpu_torch import MinHash
+        from datasketch_tpu_torch.kernels.minhash_sign import minhash_sign_plain
+        from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
+
+        n_docs = full.shape[0]
+        want = MinHash.bulk_signatures(self.sig_corpus[:n_docs], num_perm=NUM_PERM, seed=1,
+                                       out="device", device=self.device)
+        check(torch.equal(full, want), "sharded-sketch: the (2, 2) mesh's signatures differ "
+              "from MinHash.bulk_signatures")
+        starts = np.zeros(n_docs, dtype=np.int64)
+        np.cumsum(lengths[:-1], out=starts[1:])
+        a, b = perm_tensors(1, NUM_PERM, self.device)
+        plain = minhash_sign_plain(torch.from_numpy(flat.view(np.int32)).to(self.device),
+                                   torch.from_numpy(starts).to(self.device),
+                                   torch.from_numpy(lengths).to(self.device), a, b)
+        check(torch.equal(full, plain), "sharded-sketch: signatures differ from the plain signer")
+        host = full.cpu().numpy().view(np.uint32)
+        check(np.array_equal(union.cpu().numpy().view(np.uint32), host.min(axis=0)),
+              "sharded-sketch: the MinHash union differs from numpy's min")
+        check(np.array_equal(merged.cpu().numpy(), regs.cpu().numpy().max(axis=0)),
+              "sharded-sketch: the HLL union differs from numpy's max")
+        log("[sharded-sketch] %d docs on a (2, 2) mesh: %.1f docs/s (4 blocks, kernel 1 each); "
+            "equal to MinHash.bulk_signatures and the plain signer; the MinHash union over the "
+            "4 positions equals numpy's min, the HLL union of %d x 16384 registers numpy's max"
+            % (n_docs, self.sharded_sketch["docs_per_s"], regs.shape[0]))
+
+    def phase_sharded_bbit(self, sigs: np.ndarray, src, dst, n_queries: int = N_QUERIES,
+                           parity_rows: int = PARITY_ROWS, parity_queries: int = PARITY_QUERIES):
+        """ShardedBBitIndex b 1 over 4 positions on lsh-1m's rows (the int32
+        device tensor), 1,024 planted queries at k 10, 1,000 removals; its
+        launches are read around this path. Returns the parity check."""
+        torch = self.torch
+        from datasketch_tpu_torch.parallel import ShardedBBitIndex
+
+        n = sigs.shape[0]
+        dev = torch.from_numpy(sigs.view(np.int32)).to(self.device)
+        ix = ShardedBBitIndex(self.mesh(), b=1, num_perm=NUM_PERM)
+        self.sync()
+        t0 = time.perf_counter()
+        ix.insert_batch(range(n), dev)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        queries = dev[torch.from_numpy(dst[-n_queries:]).to(self.device)]
+        qps, rows = self.timed_qps(lambda: ix.query_batch(queries, TOP_K), n_queries)
+        rec = float(np.mean([int(e) in row for e, row in zip(src[-n_queries:], rows)]))
+        removed = list(dict.fromkeys(r[0] for r in rows))[:N_REMOVE]
+        ix.remove_batch(removed)
+        after = ix.query_batch(queries, TOP_K)
+        del dev
+        check(rec >= 0.99, "sharded bbit recall %.4f < 0.99" % rec)
+        check(not any(k in set(removed) for r in after for k in r),
+              "sharded bbit: a removed key came back")
+
+        def parity():
+            pair = [ShardedBBitIndex(self.mesh(device=d), b=1, num_perm=NUM_PERM)
+                    for d in (self.device, "cpu")]
+            pq = sigs[np.arange(0, parity_rows, parity_rows // parity_queries)]
+            for p in pair:
+                p.insert_batch(range(parity_rows), sigs[:parity_rows])
+                p.remove_batch([5, 6])
+            check(pair[0].query_batch(pq, TOP_K, return_scores=True) ==
+                  pair[1].query_batch(pq, TOP_K, return_scores=True),
+                  "sharded bbit: the card and the CPU answer otherwise")
+            return "%d rows x %d queries equal a device='cpu' index" % (parity_rows, len(pq))
+
+        self.sharded_idx["bbit b=1"] = {"build_s": build_s, "qps": qps, "recall": rec}
+        return parity
+
+    def phase_sharded_forest(self, sigs: np.ndarray, src, dst, n_queries: int = N_QUERIES,
+                             parity_rows: int = PARITY_ROWS, n_parity: int = 64):
+        """ShardedMinHashLSHForest (l 8, cap 64) over 4 positions on lsh-1m's
+        rows: the walk (rank 'forest') and the scan (rank 'jaccard') at k
+        10, the k 256 scan (kernel 4)."""
+        torch = self.torch
+        from datasketch_tpu_torch.parallel import ShardedMinHashLSHForest
+
+        n = sigs.shape[0]
+        dev = torch.from_numpy(sigs.view(np.int32)).to(self.device)
+        ix = ShardedMinHashLSHForest(self.mesh(), num_perm=NUM_PERM, l=FOREST_L, cap=FOREST_CAP)
+        self.sync()
+        t0 = time.perf_counter()
+        ix.index(range(n), dev)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        del dev
+        queries = sigs[dst[-n_queries:]]
+        out = {"build_s": build_s}
+        for label, kw in (("walk", dict(method="forest", rank="forest")),
+                          ("scan", dict(method="scan", rank="jaccard"))):
+            qps, rows = self.timed_qps(lambda kw=kw: ix.query_batch(queries, TOP_K, **kw),
+                                       n_queries)
+            out[label] = (qps, float(np.mean([int(e) in r for e, r in
+                                              zip(src[-n_queries:], rows)])),
+                          ix.last_truncated)
+        qps, big = self.timed_qps(lambda: ix.query_batch(queries, FOREST_BIG_K, method="scan",
+                                                         rank="jaccard"), n_queries)
+        out["scan k=%d" % FOREST_BIG_K] = qps
+        check(out["scan"][1] >= 0.99, "sharded forest scan recall %.4f < 0.99" % out["scan"][1])
+        check(all(len(r) == FOREST_BIG_K for r in big), "sharded forest k=256: short rows")
+
+        def parity():
+            pair = [ShardedMinHashLSHForest(self.mesh(device=d), num_perm=NUM_PERM, l=FOREST_L,
+                                            cap=FOREST_CAP) for d in (self.device, "cpu")]
+            for p in pair:
+                p.index(range(parity_rows), sigs[:parity_rows])
+            pq = sigs[np.arange(0, parity_rows, parity_rows // n_parity)]
+            for kw in (dict(method="forest", rank="forest"), dict(method="scan", rank="jaccard")):
+                a = pair[0].query_batch(pq, TOP_K, return_scores=True, **kw)
+                b = pair[1].query_batch(pq, TOP_K, return_scores=True, **kw)
+                check(a == b and pair[0].last_truncated == pair[1].last_truncated,
+                      "sharded forest %s: the card and the CPU answer otherwise" % kw["method"])
+            return "%d rows x %d queries equal a device='cpu' forest (walk, scan)" % (
+                parity_rows, n_parity)
+
+        self.sharded_idx["forest"] = out
+        return parity
+
+    def phase_sharded_bloom(self, sigs: np.ndarray, n_rows: int = HOST_LSH_ROWS,
+                            n: int = BLOOM_N, parity_rows: int = BLOOM_PARITY_ROWS,
+                            parity_n: int = BLOOM_PARITY_N):
+        """ShardedMinHashLSHBloom (threshold 0.8, n 100M, fp 0.01: 1 GiB of
+        words over 4 positions) holding lsh-1m's first ``n_rows`` rows,
+        queried back with 1,024 fresh signatures."""
+        from datasketch_tpu_torch.parallel import ShardedMinHashLSHBloom
+
+        ix = ShardedMinHashLSHBloom(self.mesh(), threshold=BLOOM_THRESHOLD, num_perm=NUM_PERM,
+                                    n=n, fp=BLOOM_FP)
+        rows = sigs[:n_rows]
+        self.sync()
+        t0 = time.perf_counter()
+        ix.insert_batch(rows)
+        self.sync()
+        insert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = ix.query_batch(rows)
+        query_s = time.perf_counter() - t0
+        fresh = np.random.RandomState(32).randint(0, 1 << 32, size=(N_QUERIES, NUM_PERM),
+                                                  dtype=np.uint64).astype(np.uint32)
+        fp_rate = float(ix.query_batch(fresh).mean())
+        check(hit.all(), "sharded bloom: %d false negatives" % (~hit).sum())
+        check(fp_rate <= ix.b * BLOOM_FP, "sharded bloom false-positive rate %.4f" % fp_rate)
+
+        def parity():
+            pair = [ShardedMinHashLSHBloom(self.mesh(device=d), threshold=BLOOM_THRESHOLD,
+                                           num_perm=NUM_PERM, n=parity_n, fp=BLOOM_FP)
+                    for d in (self.device, "cpu")]
+            for p in pair:
+                p.insert_batch(sigs[:parity_rows])
+            check(np.array_equal(pair[0]._host_words(), pair[1]._host_words()),
+                  "sharded bloom: the card's words differ from the CPU's")
+            probe = np.concatenate([sigs[:512], fresh[:512]])
+            check(np.array_equal(pair[0].query_batch(probe), pair[1].query_batch(probe)),
+                  "sharded bloom: the card and the CPU answer otherwise")
+            return "a %d-row filter equals a device='cpu' one word for word" % parity_rows
+
+        self.sharded_idx["bloom"] = {"inserts_per_s": n_rows / insert_s,
+                                     "queries_per_s": n_rows / query_s, "fp_rate": fp_rate}
+        return parity
+
+    def phase_sharded_ensemble(self, docs, queries, src, parity_sets: int = ENS_PARITY_SETS):
+        """ShardedMinHashLSHEnsemble (threshold 0.8, 8 partitions) over 4
+        positions by ``index_tokens`` of ensemble-1m's sets, its subset
+        queries by scan (kernel 2's sizes mode, the k = 2,048 rerun on
+        kernel 4) and bands (kernel 3 is not on the bands path: its probe
+        returns candidates only)."""
+        from datasketch_tpu_torch import MinHash
+        from datasketch_tpu_torch.parallel import ShardedMinHashLSHEnsemble
+
+        ix = ShardedMinHashLSHEnsemble(self.mesh(), threshold=ENS_THRESHOLD, num_perm=NUM_PERM,
+                                       num_part=8, bucket_cap=128, max_results=2048)
+        self.sync()
+        t0 = time.perf_counter()
+        ix.index_tokens(range(len(docs)), docs)
+        self.sync()
+        out = {"build_s": time.perf_counter() - t0}
+        q_sigs = MinHash.bulk_signatures(queries, num_perm=NUM_PERM, hashfunc="device",
+                                         out="device", device=self.device)
+        batch = (q_sigs, np.array([q.size for q in queries]))
+        for method in ("scan", "bands"):
+            qps, rows = self.timed_qps(lambda m=method: ix.query_batch(batch, method=m),
+                                       len(queries))
+            rec = float(np.mean([int(s) in row for s, row in zip(src, rows)]))
+            out[method] = (qps, rec, ix.last_truncated)
+        check(out["scan"][1] >= 0.9, "sharded ensemble scan recall %.4f" % out["scan"][1])
+
+        def parity():
+            from datasketch_tpu_torch.parallel import ShardedMinHashLSHEnsemble as E
+
+            pd, pq, _ = self.phase_ensemble_corpus(parity_sets, 128, seed=43)
+            pair = [E(self.mesh(device=d), threshold=ENS_THRESHOLD, num_perm=NUM_PERM,
+                      num_part=8, bucket_cap=128, max_results=64) for d in (self.device, "cpu")]
+            for p in pair:
+                p.index_tokens(range(len(pd)), pd)
+            qb = (MinHash.bulk_signatures(pq, num_perm=NUM_PERM, hashfunc="device", out="host",
+                                          device="cpu"), np.array([q.size for q in pq]))
+            for method in ("scan", "bands"):
+                a, b = (p.query_batch(qb, method=method) for p in pair)
+                if method == "bands":
+                    a, b = [sorted(r) for r in a], [sorted(r) for r in b]
+                check(a == b and pair[0].last_truncated == pair[1].last_truncated,
+                      "sharded ensemble %s: the card and the CPU answer otherwise" % method)
+            return "%d sets x %d queries equal a device='cpu' ensemble (scan, bands)" % (
+                parity_sets, len(pq))
+
+        self.sharded_idx["ensemble"] = out
+        return parity
+
+    def phase_sharded_hnsw(self, docs, n_sets: int = SH_HNSW_SETS, n_queries: int = N_QUERIES,
+                           parity_sets: int = SH_HNSW_PARITY_SETS, n_parity: int = 64):
+        """ShardedHNSW(minhash_jaccard, m 16, ef 64) over 4 positions by
+        ``index_tokens`` of hnsw-1m's first ``n_sets`` sets (4 shards, each
+        graph's kNN rows on kernel 2), 1,024 corpus members as queries."""
+        from datasketch_tpu_torch.parallel import ShardedHNSW
+
+        ix = ShardedHNSW(self.mesh(), distance_metric="minhash_jaccard", m=HNSW_M, ef=HNSW_EF)
+        self.sync()
+        t0 = time.perf_counter()
+        ix.index_tokens(range(n_sets), docs[:n_sets], num_perm=NUM_PERM)
+        self.sync()
+        out = {"build_s": time.perf_counter() - t0, "local_n": ix.status()["local_n"]}
+        q_rows = np.random.RandomState(47).choice(n_sets, n_queries, replace=False)
+        q = ix._points_host[q_rows]
+        out["qps"], rows = self.timed_qps(lambda: ix.query_batch(q, TOP_K), n_queries)
+        out["self_hit"] = float(np.mean([any(d == 0.0 for _, d in row) for row in rows]))
+        check(out["self_hit"] >= HNSW_RECALL_FLOOR,
+              "sharded hnsw: queries find a distance-0 row at %.4f" % out["self_hit"])
+
+        def parity():
+            pair = [ShardedHNSW(self.mesh(device=d), distance_metric="minhash_jaccard",
+                                m=HNSW_M, ef=HNSW_EF) for d in (self.device, "cpu")]
+            for p in pair:
+                p.index_tokens(range(parity_sets), docs[:parity_sets], num_perm=NUM_PERM)
+            pq = pair[1]._points_host[:n_parity]
+            check(pair[0].query_batch(pq, TOP_K) == pair[1].query_batch(pq, TOP_K),
+                  "sharded hnsw: the card and the CPU answer otherwise")
+            return "%d sets x %d queries equal a device='cpu' index" % (parity_sets, n_parity)
+
+        self.sharded_idx["hnsw"] = out
+        return parity
+
+    def phase_sharded_2proc(self, sigs: np.ndarray, n_rows: int = HOST_LSH_ROWS,
+                            n_queries: int = N_QUERIES, nccl: bool = True,
+                            timeout: float = 300.0) -> None:
+        """sharded-2proc: two child processes in a gloo group, each owning 2
+        of a 4-position mesh on this run's device, over host-lsh-262k's rows
+        (:func:`sharded_worker`); then, on a card, one child in a one-rank
+        NCCL group. A child that fails, hangs or exits non-zero fails the
+        phase."""
+        import socket
+
+        def free_port():
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                return s.getsockname()[1]
+
+        def run(args_list, expect):
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--sharded-worker"] + [str(a) for a in args],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for args in args_list]
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(timeout=timeout)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for p, out in zip(procs, outs):
+                for line in out.strip().splitlines():
+                    log("  child: " + line)
+                check(p.returncode == 0, "sharded-2proc: a child exited %s" % p.returncode)
+                for line in expect:
+                    check(line in out, "sharded-2proc: a child did not report %r" % line)
+            return time.perf_counter() - t0
+
+        self.sharded_2proc = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            np.save(os.path.join(tmp, "rows.npy"), sigs[:n_rows])
+            port = free_port()
+            self.sharded_2proc["gloo_s"] = run(
+                [("gloo", port, rank, 2, tmp, self.device, n_queries) for rank in (0, 1)],
+                ("collectives OK", "global-mesh index OK", "handoff OK"))
+            if nccl:
+                self.sharded_2proc["nccl_s"] = run(
+                    [("nccl", free_port(), 0, 1, tmp, self.device, n_queries)], ("nccl OK",))
+        log("[sharded-2proc] 2 gloo ranks x 2 positions on %s over %d rows: collectives, a "
+            "ShardedMinHashLSH equal to the 4-position mesh in one process, save -> barrier -> "
+            "load onto 3 positions (%.1f s); one-rank NCCL group: %s" % (
+                self.device, n_rows, self.sharded_2proc["gloo_s"],
+                "%.1f s" % self.sharded_2proc["nccl_s"] if nccl else "not run off the card"))
+
     def timed_qps(self, fn, n_queries: int, reps: int = 3):
         """(best q/s over ``reps`` synced calls after a warm one, the last
         answer)."""
@@ -3227,6 +3775,86 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sharded_worker(backend: str, port: str, rank: str, world: str, tmp: str,
+                   device: str, n_queries: str = str(N_QUERIES)) -> int:
+    """A child of sharded-2proc (``chip_smoke.py --sharded-worker ...``): joins
+    a ``backend`` group of ``world`` ranks on localhost, reads the rows the
+    parent wrote to ``tmp``, and runs, with gloo, the collectives, a
+    ``ShardedMinHashLSH`` over a 4-position mesh (2 positions a rank on
+    ``device``) equal to the same index on 4 positions in this process, and
+    the save -> barrier -> load handoff onto a local 3-position mesh; with
+    NCCL (one rank), ``distributed_minhash_union`` and one ``top_k`` equal to
+    the local mesh's. Prints one line per step; any failure raises."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from datasketch_tpu_torch.parallel import (
+        ShardedMinHashLSH,
+        collectives,
+        distributed_minhash_union,
+        init_distributed,
+        make_mesh,
+    )
+    from datasketch_tpu_torch.parallel.mesh import Mesh
+
+    rank, world, n_queries = int(rank), int(world), int(n_queries)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0 if dev.index is None else dev.index)
+    init_distributed("localhost:%s" % port, num_processes=world, process_id=rank,
+                     backend=backend)
+    try:
+        rows = np.load(os.path.join(tmp, "rows.npy"))
+        q = rows[:: max(1, rows.shape[0] // n_queries)][:n_queries]
+        n_pos = 4 if backend == "gloo" else 2
+        mesh = make_mesh(n_pos, axis_names=("data",), device=device)
+        local = Mesh([mesh.home] * n_pos, ("data",))
+        check(dist.get_backend() == backend and mesh.is_multiprocess,
+              "rank %d: backend %s" % (rank, dist.get_backend()))
+        head = torch.from_numpy(rows[:4096].view(np.int32)).to(mesh.home)
+        check(torch.equal(distributed_minhash_union(head, mesh),
+                          distributed_minhash_union(head, local)),
+              "rank %d: the MinHash union differs from the local mesh's" % rank)
+        ix, ref = (ShardedMinHashLSH(m, threshold=0.5, num_perm=NUM_PERM, bucket_cap=128)
+                   for m in (mesh, local))
+        for x in (ix, ref):
+            x.index(range(rows.shape[0]), rows)
+        if backend == "nccl":
+            check(ix.top_k(q, TOP_K, method="scan") == ref.top_k(q, TOP_K, method="scan"),
+                  "nccl: top_k differs from the local mesh's")
+            print("[%d] nccl OK" % rank, flush=True)
+            return 0
+        mine = {s: torch.full((2,), s + 1, dtype=torch.int32, device=mesh.home)
+                for s in mesh.local_shards("data")}
+        check(mesh.local_shards("data") == [2 * rank, 2 * rank + 1],
+              "rank %d owns shards %s" % (rank, mesh.local_shards("data")))
+        check(collectives.all_gather_cat(mesh, "data", mine, dim=0).tolist()
+              == [1, 1, 2, 2, 3, 3, 4, 4], "rank %d: all_gather_cat" % rank)
+        check(int(collectives.psum(mesh, {s: s + 1 for s in mine})) == 10,
+              "rank %d: psum" % rank)
+        print("[%d] collectives OK" % rank, flush=True)
+        for method in ("scan", "bands"):
+            check(ix.top_k(q, TOP_K, method=method) == ref.top_k(q, TOP_K, method=method)
+                  and ix.last_truncated == ref.last_truncated,
+                  "rank %d: top_k %s differs from the local mesh's" % (rank, method))
+            check(ix.query_batch(q, method=method) == ref.query_batch(q, method=method),
+                  "rank %d: query_batch %s differs from the local mesh's" % (rank, method))
+        print("[%d] global-mesh index OK" % rank, flush=True)
+        ix.save(os.path.join(tmp, "handoff_%d" % rank))  # a collective: every rank saves
+        dist.barrier()
+        if rank == 1:
+            loaded = ShardedMinHashLSH.load(os.path.join(tmp, "handoff_0.npz"),
+                                            Mesh([mesh.home] * 3, ("data",)))
+            check(loaded.top_k(q, TOP_K, method="scan") == ref.top_k(q, TOP_K, method="scan"),
+                  "rank 1: the loaded index answers otherwise")
+        dist.barrier()
+        print("[%d] handoff OK" % rank, flush=True)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     try:
         import torch
@@ -3293,8 +3921,44 @@ def main() -> int:
         for kname in HOST_LSH_PATH:
             check(hl_counts[kname] > 0, "kernel %s was not launched on the host-lsh-262k "
                   "path" % kname)
-        del index
+        t_sharded = time.perf_counter()
+        zero_counts()
+        shl = smoke.phase_sharded_lsh(index, sigs, dst)
+        torch.cuda.synchronize()
+        shl_counts = counts()
+        smoke.phase_sharded_lsh_checks(index, sigs, *shl)
+        del shl, index
         torch.cuda.empty_cache()
+        log("[sharded-lsh-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.sharded_lsh)))
+        log("[launches] sharded-lsh-1m path: %s" % json.dumps(shl_counts))
+        zero_counts()
+        sketch = smoke.phase_sharded_sketch()
+        torch.cuda.synchronize()
+        shs_counts = counts()
+        smoke.phase_sharded_sketch_checks(*sketch)
+        del sketch
+        log("[sharded-sketch] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.sharded_sketch)))
+        log("[launches] sharded-sketch path: %s" % json.dumps(shs_counts))
+        sh_idx = {}
+        for label, phase in (("bbit", lambda: smoke.phase_sharded_bbit(sigs, src, dst)),
+                             ("forest", lambda: smoke.phase_sharded_forest(sigs, src, dst)),
+                             ("bloom", lambda: smoke.phase_sharded_bloom(sigs))):
+            zero_counts()
+            parity = phase()
+            torch.cuda.synchronize()
+            sh_idx[label] = counts()
+            log("[sharded-%s] %s; %s" % (label, parity(), nvidia_smi_line()))
+            log("[launches] sharded-%s path: %s" % (label, json.dumps(sh_idx[label])))
+            torch.cuda.empty_cache()
+        smoke.phase_sharded_2proc(sigs)
+        for label, got, path in (("sharded-lsh-1m", shl_counts, SHARDED_LSH_PATH),
+                                 ("sharded-sketch", shs_counts, SHARDED_SKETCH_PATH),
+                                 ("sharded-bbit", sh_idx["bbit"], SHARDED_BBIT_PATH),
+                                 ("sharded-forest", sh_idx["forest"], SHARDED_FOREST_PATH)):
+            for kname in path:
+                check(got[kname] > 0, "kernel %s was not launched on the %s path"
+                      % (kname, label))
+        t_sharded = time.perf_counter() - t_sharded
         smoke.phase_facade_parity(sigs)
         log("[launches] LSH main path (phases 4-6): %s" % json.dumps(lsh_counts))
         for kname in LSH_PATH:
@@ -3330,11 +3994,24 @@ def main() -> int:
         smoke.phase_ensemble_stream(*ens[:3])
         torch.cuda.synchronize()
         ens_counts = counts()
+        t0 = time.perf_counter()
+        zero_counts()
+        ens_parity = smoke.phase_sharded_ensemble(docs, queries, qsrc)
+        torch.cuda.synchronize()
+        sh_idx["ensemble"] = counts()
+        t_sharded += time.perf_counter() - t0
         del docs, queries
         smoke.phase_ensemble_checks(*ens)
         del ens
         torch.cuda.empty_cache()
         smoke.phase_ensemble_parity()
+        t0 = time.perf_counter()
+        log("[sharded-ensemble] %s; %s" % (ens_parity(), nvidia_smi_line()))
+        log("[launches] sharded-ensemble path: %s" % json.dumps(sh_idx["ensemble"]))
+        for kname in SHARDED_ENSEMBLE_PATH:
+            check(sh_idx["ensemble"][kname] > 0,
+                  "kernel %s was not launched on the sharded-ensemble path" % kname)
+        t_sharded += time.perf_counter() - t0
         log("[ensemble] %s: build %.3f s, q/s scan %.1f, bands %.1f, auto %.1f; peak "
             "device memory %d B" % (nvidia_smi_line(), smoke.ens_build_s,
                                     smoke.ens_qps["scan"], smoke.ens_qps["bands"],
@@ -3434,7 +4111,7 @@ def main() -> int:
         torch.cuda.synchronize()
         hnsw_counts = counts()
         smoke.phase_hnsw_checks(hnsw, docs, hq, hrows)
-        del hnsw, docs
+        del hnsw
         torch.cuda.empty_cache()
         log("[hnsw-1m] %s: %s" % (nvidia_smi_line(), json.dumps(smoke.hnsw)))
         log("[launches] hnsw-1m path: %s" % json.dumps(hnsw_counts))
@@ -3474,9 +4151,25 @@ def main() -> int:
                 check(got[kname] > 0, "kernel %s was not launched on the %s path"
                       % (kname, label))
         log("[hnsw] the four HNSW phases: %.1f s" % (time.perf_counter() - t_hnsw))
+        t0 = time.perf_counter()
+        zero_counts()
+        hnsw_parity = smoke.phase_sharded_hnsw(docs)
+        torch.cuda.synchronize()
+        sh_idx["hnsw"] = counts()
+        log("[sharded-hnsw] %s; %s" % (hnsw_parity(), nvidia_smi_line()))
+        log("[launches] sharded-hnsw path: %s" % json.dumps(sh_idx["hnsw"]))
+        for kname in SHARDED_HNSW_PATH:
+            check(sh_idx["hnsw"][kname] > 0,
+                  "kernel %s was not launched on the sharded-hnsw path" % kname)
+        del docs
+        torch.cuda.empty_cache()
+        t_sharded += time.perf_counter() - t0
+        log("[sharded] %s: %s; the sharded phases %.1f s in all"
+            % (nvidia_smi_line(), json.dumps(smoke.sharded_idx), t_sharded))
         paths = (lsh_counts, fo_counts, hl_counts, ens_counts, w_counts, bbit_counts, b16_counts, text_counts,
                  forest_counts, f16_counts, facade2_counts, mh_counts, sch_counts,
-                 hnsw_counts, h16_counts, l2_counts, m48_counts)
+                 hnsw_counts, h16_counts, l2_counts, m48_counts, shl_counts, shs_counts,
+                 *sh_idx.values())
         launches = {name: sum(c[name] for c in paths) for name in lsh_counts}
         report = []
         for k in KERNELS:
@@ -3501,4 +4194,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -295,9 +295,16 @@ class TorchMinHashLSHBloom:
     def __init__(self, threshold: float = 0.9, num_perm: int = 128,
                  weights: tuple = (0.5, 0.5), params: Optional[tuple] = None,
                  n: int = 1_000_000, fp: float = 0.01, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self._set_params(threshold, num_perm, weights, params, n, fp)
+        self._words = torch.zeros((self.b, self.num_words), dtype=torch.int32,
+                                  device=self.device)
+
+    def _set_params(self, threshold: float, num_perm: int, weights: tuple,
+                    params: Optional[tuple], n: int, fp: float) -> None:
+        """The banding, the bitmap size and the probe count (no storage)."""
         if threshold > 1.0 or threshold < 0.0:
             raise ValueError("threshold must be in [0.0, 1.0]")
-        self.device = resolve_device(device)
         self.threshold = threshold
         self.h = num_perm
         if params is not None:
@@ -311,8 +318,6 @@ class TorchMinHashLSHBloom:
         self.num_hashes = max(1, int(round(self.num_bits / max(1, n) * np.log(2.0))))
         # the tail of the last word past num_bits is never addressed
         self.num_words = -(-self.num_bits // 32)
-        self._words = torch.zeros((self.b, self.num_words), dtype=torch.int32,
-                                  device=self.device)
         self.hashranges = [(i * self.r, (i + 1) * self.r) for i in range(self.b)]
 
     def _positions(self, minhashes) -> np.ndarray:

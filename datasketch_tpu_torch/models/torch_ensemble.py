@@ -507,12 +507,16 @@ class TorchMinHashLSHEnsemble:
             lowers=np.array([-1 if x is None else int(x) for x in self.lowers], np.int64),
             uppers=np.array([-1 if x is None else int(x) for x in self.uppers], np.int64),
             n_valid=self._n_valid,
-            sigs=to_numpy_u32(self._sigs),
+            sigs=self._host_stack(),
             keys=pack_keys(self._keys_per_part),
         )
         if self._sizes_host is not None:
             fields["sizes"] = self._sizes_host
         atomic_savez(path, **fields)
+
+    def _host_stack(self) -> np.ndarray:
+        """uint32[parts, N_pad, P] host copy of the stacked signatures."""
+        return to_numpy_u32(self._sigs)
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "TorchMinHashLSHEnsemble":

@@ -59,6 +59,13 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "from datasketch_tpu_torch import hyperloglog, b_bit_minhash, lshforest",
         "from datasketch_tpu_torch import lshensemble, lshensemble_partition, lsh_bloom",
         "from datasketch_tpu_torch import hnsw, torch_lsh, torch_ensemble",
+        "from datasketch_tpu_torch import parallel",
+        "from datasketch_tpu_torch.parallel import mesh, collectives, sharded_sketch",
+        "from datasketch_tpu_torch.parallel import sharded_lsh, sharded_bbit, sharded_bloom",
+        "from datasketch_tpu_torch.parallel import sharded_ensemble, sharded_forest",
+        "from datasketch_tpu_torch.parallel import sharded_hnsw",
+        "import torch.distributed as dist",
+        "assert not dist.is_initialized()",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'datasketch_tpu'))",
         "assert not bad, bad",
@@ -117,6 +124,12 @@ def test_cuda_without_a_card_raises():
         knn_graph.knn_adjacency(np.zeros((3, 4), np.float32), k=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HNSW.from_points(np.zeros((3, 4), np.float32))
+    from datasketch_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(4, device="cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -158,3 +158,33 @@ def test_smoke_failover_and_host_lsh_phases_on_cpu():
     path = smoke.phase_host_lsh(index, sigs, near, n_rows=2048, n_async=400, n_queries=48)
     smoke.phase_host_lsh_checks(index, path, n_async=400)
     assert smoke.host_lsh["offsets_queries_compared"] >= 40
+
+
+def test_smoke_sharded_phases_on_cpu():
+    """The sharded phases at a small size on the CPU: sharded-lsh-1m's path
+    and checks (served index, bands parity, reload, failover), the sharded
+    sketches and unions, the five sharded indexes with their parity checks,
+    and the two gloo children (the NCCL child needs a card)."""
+    smoke = chip_smoke.Smoke(torch, "cpu")
+    real = smoke.phase_signatures(n_docs=300)
+    index, sigs, src, dst, near = smoke.phase_index(real, n_rows=4096)
+    smoke.phase_serving(index, sigs, src, dst, near, n_queries=48)
+    sh = smoke.phase_sharded_lsh(index, sigs, dst, n_queries=48)
+    smoke.phase_sharded_lsh_checks(index, sigs, *sh, parity_rows=2048, parity_queries=32,
+                                   n_host=8)
+    assert smoke.sharded_lsh["status"]["n_shards"] == 4
+    smoke.phase_sharded_sketch_checks(*smoke.phase_sharded_sketch(n_docs=300, hll_rows=64))
+    for parity in (smoke.phase_sharded_bbit(sigs, src, dst, n_queries=48, parity_rows=1024,
+                                            parity_queries=32),
+                   smoke.phase_sharded_forest(sigs, src, dst, n_queries=48, parity_rows=1024,
+                                              n_parity=16),
+                   smoke.phase_sharded_bloom(sigs, n_rows=2048, n=100000, parity_rows=512,
+                                             parity_n=10000)):
+        parity()
+    docs, queries, qsrc = smoke.phase_ensemble_corpus(n_sets=2000, n_queries=40)
+    smoke.phase_sharded_ensemble(docs, queries, qsrc, parity_sets=500)()
+    smoke.phase_sharded_hnsw(smoke.hnsw_corpus(2048), n_sets=1024, n_queries=32,
+                             parity_sets=256, n_parity=16)()
+    assert set(smoke.sharded_idx) == {"bbit b=1", "forest", "bloom", "ensemble", "hnsw"}
+    smoke.phase_sharded_2proc(sigs, n_rows=2048, n_queries=64, nccl=False, timeout=240)
+    assert smoke.sharded_2proc["gloo_s"] > 0

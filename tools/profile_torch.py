@@ -5,10 +5,10 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 tools/profile_torch.py [CELL ...]
 
-CELL is one of ``sign-16k``, ``lsh-1m``, ``failover-1m``,
+CELL is one of ``sign-16k``, ``lsh-1m``, ``sharded-lsh-1m``, ``failover-1m``,
 ``host-lsh-262k``, ``ensemble-1m``, ``weighted-1m``, ``bbit-1m``,
 ``bbit-16m``, ``text-16k``, ``forest-1m``, ``hll``, ``schemes``, ``bloom``,
-``hnsw`` (default: all, in that order; ``lsh-1m``, ``failover-1m``,
+``hnsw`` (default: all, in that order; ``lsh-1m``, ``sharded-lsh-1m``, ``failover-1m``,
 ``host-lsh-262k``, ``bbit-1m``, ``forest-1m`` and ``bloom`` index the
 signatures of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 ``chip_smoke.py``'s data for it and profiles each step of its path with
@@ -19,6 +19,10 @@ signatures of ``sign-16k``'s corpus, as ``chip_smoke.py`` does). Each cell draws
 - lsh-1m: the 1,048,576-row ``TorchMinHashLSH`` build, ``top_k`` k = 10 by
   scan and bands, threshold ``query_batch`` by bands and scan, ``top_k``
   k = 256 by scan, over 1,024 queries;
+- sharded-lsh-1m: the same rows in a ``ShardedMinHashLSH`` over 4 mesh
+  positions on the one card, beside the lsh-1m index built from the same
+  device signatures: each build and each of lsh-1m's query steps, sharded
+  step first;
 - failover-1m: the lsh-1m index with 1,000 keys removed behind a
   ``FailoverIndex``: its snapshot, ``top_k`` k = 10 by scan through the
   wrapper on the device, then (tripped by a failed probe) the host scan's
@@ -77,7 +81,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("sign-16k", "lsh-1m", "failover-1m", "host-lsh-262k", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
+CELLS = ("sign-16k", "lsh-1m", "sharded-lsh-1m", "failover-1m", "host-lsh-262k", "ensemble-1m", "weighted-1m", "bbit-1m", "bbit-16m",
          "text-16k", "forest-1m", "hll", "schemes", "bloom", "hnsw")
 
 
@@ -167,6 +171,40 @@ def profile_lsh(torch, chip_smoke, dev, real):
                  lambda m=method: index.query_batch(queries, return_scores=True, method=m))
     profiled(torch, "top_k k=%d scan" % chip_smoke.BIG_K,
              lambda: index.top_k(queries, chip_smoke.BIG_K, method="scan"))
+
+
+def profile_sharded_lsh(torch, chip_smoke, dev, real):
+    from datasketch_tpu_torch import TorchMinHashLSH
+    from datasketch_tpu_torch.parallel import ShardedMinHashLSH, make_mesh
+
+    n, nq, k = chip_smoke.N_INDEX, chip_smoke.N_QUERIES, chip_smoke.TOP_K
+    sigs, src, dst, _ = chip_smoke.synth_index(n, real)
+    rows = torch.from_numpy(sigs.view("int32")).to(dev)
+    mesh = make_mesh(4, shape=(4, 1), device=dev)
+
+    kw = dict(threshold=0.5, num_perm=chip_smoke.NUM_PERM, bucket_cap=128)
+
+    def build(index):
+        index.index(range(n), rows)
+        return index
+
+    pair = (("sharded", profiled(torch, "sharded index %d rows" % n,
+                                 lambda: build(ShardedMinHashLSH(mesh, **kw)), reps=1)),
+            ("lsh-1m", profiled(torch, "lsh-1m index %d rows" % n,
+                                lambda: build(TorchMinHashLSH(device=dev, **kw)), reps=1)))
+    queries, expect = sigs[dst[-nq:]], src[-nq:]
+    steps = [("top_k k=%d %s" % (k, m), lambda ix, m=m: ix.top_k(queries, k, method=m))
+             for m in ("scan", "bands")]
+    steps += [("query_batch 0.5 %s" % m,
+               lambda ix, m=m: ix.query_batch(queries, return_scores=True, method=m))
+              for m in ("bands", "scan")]
+    steps.append(("top_k k=%d scan" % chip_smoke.BIG_K,
+                  lambda ix: ix.top_k(queries, chip_smoke.BIG_K, method="scan")))
+    for label, fn in steps:
+        for name, index in pair:
+            out = profiled(torch, "%s %s" % (name, label), lambda: fn(index))
+            if label.startswith("top_k k=%d" % k):
+                print(json.dumps({"recall": recall(expect, out)}), flush=True)
 
 
 def profile_failover(torch, chip_smoke, dev, real):
@@ -550,7 +588,7 @@ def main() -> int:
     smoke.phase_build()
     real = None
     for cell in CELLS:
-        needs_real = bool({"lsh-1m", "failover-1m", "host-lsh-262k", "bbit-1m", "forest-1m",
+        needs_real = bool({"lsh-1m", "sharded-lsh-1m", "failover-1m", "host-lsh-262k", "bbit-1m", "forest-1m",
                            "bloom"} & set(cells))
         if cell not in cells and not (cell == "sign-16k" and needs_real):
             continue
@@ -559,6 +597,8 @@ def main() -> int:
             real = profile_sign(torch, chip_smoke, dev)
         elif cell == "lsh-1m":
             profile_lsh(torch, chip_smoke, dev, real)
+        elif cell == "sharded-lsh-1m":
+            profile_sharded_lsh(torch, chip_smoke, dev, real)
         elif cell == "failover-1m":
             profile_failover(torch, chip_smoke, dev, real)
         elif cell == "host-lsh-262k":
