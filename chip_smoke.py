@@ -249,6 +249,10 @@ W_QUERIES = 1024
 W_TOP_K = 5
 W_CPU_ROWS = 1024  # rows held against a device="cpu" generator
 W_DENSE_ROWS = 16384  # rows densified through kernel 6
+# kernel 7's edges (phase_kernels_cws_blocks): (rows, D, S) around its
+# 512-row blocks, 64-dim chunks and 32-sample slabs
+CWS_BLOCK_SHAPES = ((513, 10001, 128), (1, 10001, 1), (511, 333, 6), (513, 10001, 100),
+                    (1100, 333, 129), (600, 333, 256), (300, 333, 1030), (65537, 333, 128))
 W_ENS_SETS = 8192
 W_SLOT_PAIRS = 1 << 20
 BBIT_ROWS = 1 << 24
@@ -311,6 +315,10 @@ PEAK_BYTES = 3.35e12
 # off the card, for a rehearsal, the H100 SXM's SMs and maximum SM clock
 INT_LANES_PER_SM = 64
 H100_SMS, H100_MAX_SM_MHZ = 132, 1980
+# f32 operations that cannot fuse into an FMA (the CWS fold keeps the JAX
+# op order, each step rounded on its own): one per FP32 lane per clock,
+# 128 lanes an SM, half of PEAK_F32_OPS, which counts an FMA as two
+PEAK_F32_UNFUSED_OPS = 128 * H100_SMS * H100_MAX_SM_MHZ * 1e6
 # Integer ALU instructions per unit of work, read from the SASS of the
 # kernels' inner loops (``tools/scan_steps.py --sass``). An equal-slot count
 # (kernels 2, 2s, 3 and 4) needs one compare per (query, row, slot): kernel
@@ -452,12 +460,14 @@ class Smoke:
         device_sync(self.device)
 
     def bound(self, name: str, nbytes: float, int_ops: float = 0.0,
-              f32_ops: float = 0.0) -> None:
+              f32_ops: float = 0.0, unfused_ops: float = 0.0) -> None:
         """Record the least time the card could take for a timed call: the
         largest of ``int_ops`` over the integer ALU rate (:func:`int_rate`),
-        ``f32_ops`` over the f32 peak and ``nbytes`` (each input read once,
-        each output written once) over the memory rate."""
-        t_ops = max(int_ops / self.int_rate, f32_ops / PEAK_F32_OPS) * 1e3
+        ``f32_ops`` over the f32 peak, ``unfused_ops`` (f32 operations that
+        cannot fuse) over PEAK_F32_UNFUSED_OPS and ``nbytes`` (each input
+        read once, each output written once) over the memory rate."""
+        t_ops = max(int_ops / self.int_rate, f32_ops / PEAK_F32_OPS,
+                    unfused_ops / PEAK_F32_UNFUSED_OPS) * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         rec = self.record[name]
         rec["bound_ms"] = max(t_ops, t_bytes)
@@ -851,12 +861,13 @@ class Smoke:
         rec["ms"] = self.time_ms(lambda: kc.cws_sparse(*args))
         rec["plain_ms"] = self.time_ms(lambda: kc.cws_sparse_plain(*args), iters=1, warmup=0)
         # per active (row, dim, sample): division, add, floor, subtract,
-        # multiply, subtract, subtract, compare; a log per active (row, dim)
+        # multiply, subtract, subtract, compare, none of which can fuse; a
+        # log per active (row, dim)
         active = int((vals > 0).sum())
         self.bound("cws_sparse",
                    8 * vals.numel() + 8 * (n_rows + 1) + 12 * W_DIM * W_SAMPLES
                    + 8 * n_rows * W_SAMPLES,
-                   f32_ops=8.0 * active * W_SAMPLES + active)
+                   unfused_ops=8.0 * active * W_SAMPLES + active)
         del vals, idx, indptr, args
         self.phase_kernels_cws_dense(gen, dense_rows, min(edge_rows, 64))
         self.phase_kernels_cws_edges(edge_rows)
@@ -881,6 +892,59 @@ class Smoke:
                   and bool((got[2, :, 0] == 0).all()),
                   "%s: negative t, the empty row or the forced tie are wrong" % case)
         self.phase_kernels_cws_order(edge_rows)
+        self.phase_kernels_cws_blocks()
+
+    def phase_kernels_cws_blocks(self, shapes=CWS_BLOCK_SHAPES) -> None:
+        """Kernel 7 against its plain version on :func:`cws_block_case`'s
+        rows at each (rows, D, S) of ``shapes`` (batches of 1, 511, 513 and
+        65,537 rows around kernel 7's 512-row blocks; S from 1 to 1,030;
+        shuffled rows, a fully dense row, ties within and across 64-dim
+        chunks, ties at ln_a = +0.0), on unaligned copies of the tables, on
+        rows with no entry, on parameters that give ln_a = NaN or +inf
+        (never chosen; equal to the plain version on the rows without those
+        entries) and a weight of +inf, and its quotient against
+        ``__fdiv_rn`` over every r in [2**-32, 2**32); those last two on the
+        card only."""
+        torch = self.torch
+        kc = self.kmod("cws_sparse")
+        dev = self.device
+        cpu = dev.type != "cuda"
+        for i, (n_rows, d, s) in enumerate(shapes):
+            if cpu:  # a rehearsal: the same cases, cut
+                n_rows, d = min(n_rows, 300), min(d, 1001)
+            tabs, csr, ties = cws_block_case(torch, d, s, dev, n_rows)
+            case = "blocks B %d D %d S %d" % (n_rows, d, s)
+            want = kc.cws_sparse_plain(*csr, *tabs)
+            for row, dim in ties:
+                check(bool((want[row, :, 0] == dim).all()),
+                      "%s: row %d's tie does not go to dim %d" % (case, row, dim))
+            self.compare("cws_sparse", case, kc.cws_sparse(*csr, *tabs), want)
+            if i == 0:
+                moved = [unaligned_copy(torch, t) for t in tabs]
+                self.compare("cws_sparse", case + " unaligned tables",
+                             kc.cws_sparse(*csr, *moved), want)
+        tabs, _, _ = cws_block_case(torch, 333, 6, dev, 1)
+        empty = (torch.zeros(0, dtype=torch.float32, device=dev),
+                 torch.zeros(0, dtype=torch.int32, device=dev),
+                 torch.zeros(6, dtype=torch.int64, device=dev))
+        got = kc.cws_sparse(*empty, *tabs)
+        check(got.shape == (5, 6, 2) and not bool(got.any()), "nnz 0: rows are not (0, 0)")
+        if cpu:  # the plain version's argmin takes a NaN: the rest is the kernel's
+            return
+        tabs, csr, masked = cws_odd_case(torch, dev)
+        got = kc.cws_sparse(*csr, *tabs)
+        want = kc.cws_sparse_plain(*masked, *tabs)
+        keep = [i for i in range(got.shape[0]) if i != 41]  # +inf weights: checked below
+        self.compare("cws_sparse", "ln_a NaN / +inf, as if those entries were inactive",
+                     got[keep], want[keep])
+        check(not bool(got[40].any()) and bool((got[41, :, 0] == 3).all())
+              and bool((got[42, :, 0] == 11).all()),
+              "ln_a NaN / +inf: rows 40-42 are not (0, 0), dim 3 and dim 11")
+        check(bool((got[41, :, 1] == 2 ** 31 - 1).all()), "weights of +inf: t is not INT32_MAX")
+        if hasattr(kc, "div_mismatches"):  # older checkouts timed by tools/scan_steps.py
+            vlogs = torch.from_numpy(cws_numerators()).to(dev)
+            bad = kc.div_mismatches(vlogs, 2.0 ** -32, 2.0 ** 32)
+            check(bad == 0, "kernel 7's quotient differs from __fdiv_rn %d times" % bad)
 
     def phase_kernels_cws_dense(self, gen, dense_rows: int = W_DENSE_ROWS,
                                 edge_rows: int = 64,
@@ -916,7 +980,7 @@ class Smoke:
                                        warmup=0)
         active = int((w > 0).sum())
         self.bound("cws_dense", 4 * w.numel() + 12 * W_DIM * W_SAMPLES + 8 * chunk * W_SAMPLES,
-                   f32_ops=8.0 * active * W_SAMPLES + active)
+                   unfused_ops=8.0 * active * W_SAMPLES + active)
         del dense, w, sparse_kt
         for d, s in edge_ds:
             tabs, w, ties = cws_dense_case(torch, d, s, dev, edge_rows)
@@ -3627,6 +3691,101 @@ def cws_order_case(torch, d: int, s: int, device, n_rows: int):
     tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
     csr = tuple(torch.from_numpy(x).to(device) for x in (vals, idx, indptr))
     return tabs, csr, [(2, a), (5, b)]
+
+
+def cws_block_case(torch, d: int, s: int, device, n_rows: int):
+    """Tables (transposed [d, s], drawn as the generator draws them) and CSR
+    rows for kernel 7's block structure: ~2 % dense rows with |N(0, 1)|
+    weights, their entries in a shuffled order, and in the first and the
+    last rows (in the first only, for batches under 12 rows): a fully dense
+    row, shuffled; dims 5, 40 at one weight, 40's parameters a copy of 5's
+    (a tie within a 64-dim chunk: 5, the first entry, wins); dims 200, 70
+    at one weight, 200's a copy of 70's (a tie across chunks: 200 wins);
+    dims 20, 21 at weight 1.0 with r 1, beta 0.5 and ln c 0.5, so that
+    ln_a = +0.0 for both (20 wins); one dim at the end; an empty row. Also
+    returns the forced ties as (row, winning dim) pairs."""
+    rng = np.random.RandomState(d * 11 + s + n_rows)
+    rs = rng.gamma(2, 1, (d, s)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (d, s))).astype(np.float32)
+    betas = rng.uniform(0, 1, (d, s)).astype(np.float32)
+    dense = rng.permutation(d)
+    specials, wins = [(list(dense), list(np.abs(rng.randn(d)) + 0.1))], {}
+    for a, b, w in ((5, 40, 0.75), (70, 200, 1.25)):
+        if b < d:
+            for t in (rs, ln_cs, betas):
+                t[b] = t[a]
+            first = a if a == 5 else b
+            wins[len(specials)] = first
+            specials.append(([first, a + b - first], [w, w]))
+    if d > 21:
+        rs[20:22], betas[20:22], ln_cs[20:22] = 1.0, 0.5, 0.5
+        wins[len(specials)] = 20
+        specials.append(([20, 21], [1.0, 1.0]))
+    specials += [([d - 1], [0.5]), ([], [])]
+    n_sp = len(specials)
+    head = list(range(min(n_sp, n_rows)))
+    tail = list(range(n_sp)) if n_rows >= 2 * n_sp else []
+    layout = head + [None] * (n_rows - len(head) - len(tail)) + tail
+    rows = []
+    for k in layout:
+        if k is not None:
+            rows.append(specials[k])
+            continue
+        dims = rng.permutation(np.nonzero(rng.rand(d) < 0.02)[0])
+        rows.append((list(dims), list(np.abs(rng.randn(dims.size)))))
+    ties = [(i, wins[k]) for i, k in enumerate(layout) if k in wins]
+    indptr = np.concatenate([[0], np.cumsum([len(r[0]) for r in rows])]).astype(np.int64)
+    idx = np.concatenate([np.asarray(r[0], dtype=np.int32) for r in rows])
+    vals = np.concatenate([np.asarray(r[1], dtype=np.float32) for r in rows])
+    tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
+    csr = tuple(torch.from_numpy(x).to(device) for x in (vals, idx, indptr))
+    return tabs, csr, ties
+
+
+def cws_odd_case(torch, device, d: int = 333, s: int = 8):
+    """Tables with r = 0 at dim 7 (ln_a NaN, and outside kernel 7's fast
+    quotient) and ln c = +inf at dim 9 (ln_a = +inf), and 40 CSR rows ~3 %
+    dense that also hold dims 7 and 9, then three rows: only dims 7 and 9
+    (nothing chosen: (0, 0)); dims 3 and 4 at weight +inf (ln_a = -inf for
+    both: 3 wins, and its t of +inf converts to INT32_MAX); dims 7, 9, 11
+    (11 wins). Returns tables, the CSR and the CSR with dims 7 and 9
+    inactive (the plain version's argmin would take a NaN)."""
+    rng = np.random.RandomState(5)
+    rs = rng.gamma(2, 1, (d, s)).astype(np.float32)
+    ln_cs = np.log(rng.gamma(2, 1, (d, s))).astype(np.float32)
+    betas = rng.uniform(0, 1, (d, s)).astype(np.float32)
+    rs[7] = 0.0
+    ln_cs[9] = np.inf
+    rows = []
+    for _ in range(40):
+        dims = sorted(set(np.nonzero(rng.rand(d) < 0.03)[0].tolist()) | {7, 9})
+        rows.append((dims, list(np.abs(rng.randn(len(dims))) + 0.05)))
+    rows += [([7, 9], [1.5, 0.5]), ([3, 4], [np.inf, np.inf]), ([7, 9, 11], [1.0, 1.0, 2.0])]
+    indptr = np.concatenate([[0], np.cumsum([len(r[0]) for r in rows])]).astype(np.int64)
+    idx = np.concatenate([np.asarray(r[0], dtype=np.int32) for r in rows])
+    vals = np.concatenate([np.asarray(r[1], dtype=np.float32) for r in rows])
+    masked = np.where(np.isin(idx, [7, 9]), 0.0, vals).astype(np.float32)
+    tabs = [torch.from_numpy(t).to(device) for t in (rs, ln_cs, betas)]
+    csr = tuple(torch.from_numpy(x).to(device) for x in (vals, idx, indptr))
+    return tabs, csr, (torch.from_numpy(masked).to(device),) + csr[1:]
+
+
+def unaligned_copy(torch, t):
+    """``t``'s values in a tensor 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def cws_numerators() -> np.ndarray:
+    """64 f32 logs of weights for kernel 7's quotient check: 0 (w = 1), the
+    logs of 1 +- 1 ulp, of the largest, least normal and least subnormal
+    f32, of 1e-30, 1e30 and a few round weights, and of |N(0, 1)| and
+    log-uniform weights."""
+    rng = np.random.RandomState(0)
+    w = np.concatenate([[1.0, 1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24, 3.4028235e38, 1.1754944e-38,
+                         1.4e-45, 1e30, 1e-30, 2.0, 0.5, 0.75, 1.5, 10.0],
+                        np.abs(rng.randn(24)) + 1e-3, 10.0 ** rng.uniform(-30, 30, 27)])
+    return np.log(w.astype(np.float32)).astype(np.float32)
 
 
 def floor_near_tie(row, k: int, smp: int, gen) -> bool:

@@ -36,8 +36,10 @@ loop (``cuobjdump -sass``): for ``scan`` and ``score`` the innermost loop
 that compares staged rows in the scan, score and b-bit kernels; for
 ``rerank`` the innermost loop with the most global loads in each form of
 the kernel, and its instructions per load (at P 128: per live candidate
-row); for ``cws_dense`` and ``cws_sparse`` the innermost loop with the most
-``MUFU`` (the fold's division), and its instructions per ``MUFU``: warp
+row); for ``cws_dense`` the innermost loop with the most ``MUFU`` (the
+fold's division), and its instructions per ``MUFU``; for ``cws_sparse``
+the innermost loops with the most ``FRND`` (the floor: its fast fold has
+no ``MUFU``), each with its instructions per ``FRND``; both are warp
 instructions per 32 (entry, sample) folds. With ``--out DIR`` each
 process's full output, and with ``--sass`` each build's whole SASS
 listing, are written under DIR.
@@ -60,11 +62,13 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel")
 PTXAS_NAMES = {"scan": "topk_scan", "rerank": "rerank_kernel", "score": "score_kernel",
-               "cws_dense": "cws_dense", "cws_sparse": "cws_sparse"}
-# kernel -> (function names, the opcode that picks the loop, the per-unit key)
+               "cws_dense": "cws_dense", "cws_sparse": ("cws_sparse", "cws_bucket")}
+# kernel -> (function names, the opcode that picks the loop, the per-unit key).
+# Kernel 7's fold has no MUFU on its main path (the reciprocal is staged):
+# its loops are picked by FRND, the floor, once per (entry, sample) fold.
 SASS_LOOPS = {"rerank": (("rerank_kernel",), "LDG", "per_load"),
               "cws_dense": (("cws_dense",), "MUFU", "per_mufu"),
-              "cws_sparse": (("cws_sparse",), "MUFU", "per_mufu")}
+              "cws_sparse": (("cws_sparse_kernel",), "FRND", "per_fold")}
 
 
 def load_smoke():
@@ -77,12 +81,14 @@ def load_smoke():
     return mod
 
 
-def ptxas_lines(log: str, name: str) -> list:
-    """ptxas' report lines for the entry function whose name holds ``name``."""
+def ptxas_lines(log: str, name) -> list:
+    """ptxas' report lines for the entry functions whose names hold ``name``
+    (or one of a tuple of names)."""
+    names = (name,) if isinstance(name, str) else name
     out, on = [], False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            on = name in line
+            on = any(n in line for n in names)
             if on:
                 out.append(line.split("'")[1] if "'" in line else line.strip())
         elif on and ("registers" in line or "spill" in line or "smem" in line):
@@ -151,20 +157,28 @@ def loops(body, labels) -> list:
     return out
 
 
-def compare_loop(body, labels, key: str = "LDS.128") -> list:
-    """Instructions of the innermost loop (no loop inside it) with the most
-    instructions whose opcode starts with ``key``: for 16-byte shared
-    loads, the loop that compares staged rows."""
+def key_loops(body, labels, key: str) -> list:
+    """Innermost loops (no loop inside them) holding the most instructions
+    whose opcode starts with ``key``, longest first."""
     spans = loops(body, labels)
-    best, best_n = [], 0
+    found, best_n = [], 0
     for lo, hi in spans:
         if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
             continue
         loop = [(a, t) for a, t in body if lo <= a <= hi]
         n_key = sum(1 for _, t in loop if opcode(t).startswith(key))
-        if n_key > best_n or (n_key == best_n and len(loop) > len(best)):
-            best, best_n = loop, n_key
-    return best
+        if n_key > best_n:
+            found, best_n = [], n_key
+        if n_key == best_n and n_key:
+            found.append(loop)
+    return sorted(found, key=len, reverse=True)
+
+
+def compare_loop(body, labels, key: str = "LDS.128") -> list:
+    """The longest of :func:`key_loops`: for 16-byte shared loads, the loop
+    that compares staged rows."""
+    found = key_loops(body, labels, key)
+    return found[0] if found else []
 
 
 def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
@@ -182,15 +196,19 @@ def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
         hit = next((k for k in names if k in name), None)
         if hit is None:
             continue
-        loop = compare_loop(body, labels, key)
-        hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
-        entry = {"function": name[:100], "loop_instructions": len(loop),
-                 "opcodes": dict(hist.most_common())}
-        if per:
-            entry[per] = len(loop) / max(1, hist[key])
-        else:
-            entry["register_compares"] = register_compares(loop)
-        report.setdefault(hit, []).append(entry)
+        # kernel 7 has two fold loops of equal FRND count: the staged-
+        # reciprocal one (no MUFU) and its exact twin; report both
+        found = key_loops(body, labels, key) if per == "per_fold" else [
+            compare_loop(body, labels, key)]
+        for loop in found:
+            hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
+            entry = {"function": name[:100], "loop_instructions": len(loop),
+                     "opcodes": dict(hist.most_common())}
+            if per:
+                entry[per] = len(loop) / max(1, hist[key])
+            else:
+                entry["register_compares"] = register_compares(loop)
+            report.setdefault(hit, []).append(entry)
     return report
 
 
