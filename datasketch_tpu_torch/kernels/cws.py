@@ -6,21 +6,7 @@ CUDA source: ``datasketch_tpu_torch/csrc/cws.cu`` (replaces
 :func:`cws_sparse`). Both take the generator's parameter tables TRANSPOSED,
 f32 ``[D, S]``. CPU tensors take the plain PyTorch versions; CUDA tensors
 launch the kernel or raise. ``launches`` counts kernel 6, ``launches_sparse``
-kernel 7 (one per call of :func:`cws_sparse`, whatever its waves).
-
-Kernel 7 runs in two CUDA kernels per wave of row blocks (512 rows each).
-A pre-pass buckets each block's active entries by dim into a scratch list
-(8 bytes an entry: ``log w`` and the entry's row in the block and dim in
-its 64-dim chunk) that the wrapper allocates with ``torch.empty``, with
-per-chunk offsets and a flag per block; it reads the CSR once, so rows need
-not be sorted. The fold then stages each chunk's table slices for 32
-samples in shared memory, shared by the block's rows, and deals the
-chunk's entries evenly to groups of lanes. Its carry is order-free: per
-(row, sample) the least ``ln_a`` as order-preserving bits under a 32-bit
-atomic min, the list index of the entry that set it, and a tie mark per
-row; at the end each winner's ``ln_a`` and ``t`` are recomputed exactly,
-and a tie or a stale index sends that (row, sample) to an exact walk of
-the row in entry order, so the first minimum in entry order still wins.
+kernel 7.
 
 The plain versions transcribe the JAX package's ``cws_ops.cws_many`` and
 ``cws_many_sparse`` (sample blocks, first-minimum ``argmin``): every f32
@@ -40,7 +26,6 @@ __all__ = [
     "cws_dense_plain",
     "cws_sparse",
     "cws_sparse_plain",
-    "div_mismatches",
     "launches",
     "launches_sparse",
 ]
@@ -52,12 +37,6 @@ launches_sparse = 0  # kernel 7 (CSR rows)
 # many elements per step
 _PLAIN_ELEMS = 1 << 22
 _PLAIN_SAMPLES = 16
-
-# kernel 7's blocking (csrc/cws.cu: kRowBlock, kDimChunk) and the entries
-# of one wave's scratch list (8 bytes each)
-ROW_BLOCK = 512
-DIM_CHUNK = 64
-WAVE_ENTRIES = 1 << 28
 
 
 def _argmin_kt(t, ln_a, active, dims, axis: int):
@@ -204,60 +183,14 @@ def cws_sparse(vals, idx, indptr, rs_t, lncs_t, betas_t):
         raise ValueError("cws_sparse: dims must lie in [0, %d)" % rs_t.shape[0])
     if stats[2] < 0 or stats[3] > vals.numel() or stats[4]:
         raise ValueError("cws_sparse: indptr must rise from >= 0 to <= nnz")
-    d, s = rs_t.shape
+    s = rs_t.shape[1]
     out = torch.empty((b, s, 2), dtype=torch.int32, device=vals.device)
     global launches_sparse
     launches_sparse += 1
-    if b == 0 or s == 0:
-        return out
-    vec = _vec(s, rs_t, lncs_t, betas_t)
-    lib = build.library()
-    stream = build.stream_ptr(vals)
-    n_chunks = (d + DIM_CHUNK - 1) // DIM_CHUNK
-    for r0, r1, n in _waves(indptr, b, stats[3] - stats[2]):
-        nb = (r1 - r0 + ROW_BLOCK - 1) // ROW_BLOCK
-        # +2: a tile's 16-byte copies may read one entry past the list
-        scratch = torch.empty(n + 2, 2, dtype=torch.int32, device=vals.device)
-        offs = torch.empty(nb, n_chunks + 1, dtype=torch.int32, device=vals.device)
-        flags = torch.empty(nb, dtype=torch.int32, device=vals.device)
-        err = lib.ds_cws_sparse(
-            vals.data_ptr(), idx.data_ptr(), indptr[r0:].data_ptr(), rs_t.data_ptr(),
-            lncs_t.data_ptr(), betas_t.data_ptr(), r1 - r0, d, s, vec, scratch.data_ptr(),
-            offs.data_ptr(), flags.data_ptr(), out[r0:].data_ptr(), stream,
-        )
-        build.check(err, "ds_cws_sparse")
+    err = build.library().ds_cws_sparse(
+        vals.data_ptr(), idx.data_ptr(), indptr.data_ptr(), rs_t.data_ptr(),
+        lncs_t.data_ptr(), betas_t.data_ptr(), b, s,
+        _vec(s, rs_t, lncs_t, betas_t, out), out.data_ptr(), build.stream_ptr(vals),
+    )
+    build.check(err, "ds_cws_sparse")
     return out
-
-
-def _waves(indptr, b: int, nnz: int):
-    """Kernel 7's waves: (r0, r1, entries) of row ranges cut at multiples of
-    ROW_BLOCK with at most WAVE_ENTRIES entries each (a block that alone
-    holds more is a wave of its own); one wave when the batch fits, which
-    needs no fetch of the offsets."""
-    if nnz <= WAVE_ENTRIES:
-        return [(0, b, nnz)]
-    rows = list(range(0, b, ROW_BLOCK)) + [b]
-    at = indptr[torch.tensor(rows, device=indptr.device)].tolist()
-    waves, i = [], 0
-    while i + 1 < len(rows):
-        j = i + 1
-        while j + 1 < len(rows) and at[j + 1] - at[i] <= WAVE_ENTRIES:
-            j += 1
-        waves.append((rows[i], rows[j], at[j] - at[i]))
-        i = j
-    return waves
-
-
-def div_mismatches(vlogs, r_lo: float, r_hi: float) -> int:
-    """How often kernel 7's three-FMA quotient (a reciprocal refined as
-    ``__fdiv_rn`` refines it, kept per staged parameter) differs from
-    ``__fdiv_rn``: every f32 ``r`` in [r_lo, r_hi) (positive, finite)
-    against each of the CUDA f32 tensor ``vlogs``."""
-    import numpy as np
-
-    lo, hi = (int(np.float32(x).view(np.uint32)) for x in (r_lo, r_hi))
-    bad = torch.zeros(1, dtype=torch.int64, device=vlogs.device)
-    err = build.library().ds_cws_div_check(vlogs.data_ptr(), vlogs.numel(), lo, hi - lo,
-                                           bad.data_ptr(), build.stream_ptr(vlogs))
-    build.check(err, "ds_cws_div_check")
-    return int(bad)
