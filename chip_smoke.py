@@ -249,8 +249,9 @@ W_QUERIES = 1024
 W_TOP_K = 5
 W_CPU_ROWS = 1024  # rows held against a device="cpu" generator
 W_DENSE_ROWS = 16384  # rows densified through kernel 6
-# kernel 7's edges (phase_kernels_cws_blocks): (rows, D, S) around its
-# 512-row blocks, 64-dim chunks and 32-sample slabs
+# kernel 7's edges (phase_kernels_cws_blocks): (rows, D, S) around the 512-row
+# blocks, 64-dim chunks and 32-sample slabs of its shared-memory design
+# (csrc/cws.cu), and past its warps' 128 samples
 CWS_BLOCK_SHAPES = ((513, 10001, 128), (1, 10001, 1), (511, 333, 6), (513, 10001, 100),
                     (1100, 333, 129), (600, 333, 256), (300, 333, 1030), (65537, 333, 128))
 W_ENS_SETS = 8192
@@ -897,14 +898,12 @@ class Smoke:
     def phase_kernels_cws_blocks(self, shapes=CWS_BLOCK_SHAPES) -> None:
         """Kernel 7 against its plain version on :func:`cws_block_case`'s
         rows at each (rows, D, S) of ``shapes`` (batches of 1, 511, 513 and
-        65,537 rows around kernel 7's 512-row blocks; S from 1 to 1,030;
-        shuffled rows, a fully dense row, ties within and across 64-dim
-        chunks, ties at ln_a = +0.0), on unaligned copies of the tables, on
-        rows with no entry, on parameters that give ln_a = NaN or +inf
-        (never chosen; equal to the plain version on the rows without those
-        entries) and a weight of +inf, and its quotient against
-        ``__fdiv_rn`` over every r in [2**-32, 2**32); those last two on the
-        card only."""
+        65,537 rows; S from 1 to 1,030; shuffled rows, a fully dense row,
+        ties within and across 64-dim chunks, ties at ln_a = +0.0), on
+        unaligned copies of the tables and on rows with no entry; then, on
+        the card only, on parameters that give ln_a = NaN or +inf (never
+        chosen: equal to the plain version on the rows without those
+        entries) and on weights of +inf."""
         torch = self.torch
         kc = self.kmod("cws_sparse")
         dev = self.device
@@ -941,10 +940,6 @@ class Smoke:
               and bool((got[42, :, 0] == 11).all()),
               "ln_a NaN / +inf: rows 40-42 are not (0, 0), dim 3 and dim 11")
         check(bool((got[41, :, 1] == 2 ** 31 - 1).all()), "weights of +inf: t is not INT32_MAX")
-        if hasattr(kc, "div_mismatches"):  # older checkouts timed by tools/scan_steps.py
-            vlogs = torch.from_numpy(cws_numerators()).to(dev)
-            bad = kc.div_mismatches(vlogs, 2.0 ** -32, 2.0 ** 32)
-            check(bad == 0, "kernel 7's quotient differs from __fdiv_rn %d times" % bad)
 
     def phase_kernels_cws_dense(self, gen, dense_rows: int = W_DENSE_ROWS,
                                 edge_rows: int = 64,
@@ -3695,7 +3690,7 @@ def cws_order_case(torch, d: int, s: int, device, n_rows: int):
 
 def cws_block_case(torch, d: int, s: int, device, n_rows: int):
     """Tables (transposed [d, s], drawn as the generator draws them) and CSR
-    rows for kernel 7's block structure: ~2 % dense rows with |N(0, 1)|
+    rows for kernel 7's edges: ~2 % dense rows with |N(0, 1)|
     weights, their entries in a shuffled order, and in the first and the
     last rows (in the first only, for batches under 12 rows): a fully dense
     row, shuffled; dims 5, 40 at one weight, 40's parameters a copy of 5's
@@ -3743,8 +3738,8 @@ def cws_block_case(torch, d: int, s: int, device, n_rows: int):
 
 
 def cws_odd_case(torch, device, d: int = 333, s: int = 8):
-    """Tables with r = 0 at dim 7 (ln_a NaN, and outside kernel 7's fast
-    quotient) and ln c = +inf at dim 9 (ln_a = +inf), and 40 CSR rows ~3 %
+    """Tables with r = 0 at dim 7 (ln_a NaN) and ln c = +inf at dim 9
+    (ln_a = +inf), and 40 CSR rows ~3 %
     dense that also hold dims 7 and 9, then three rows: only dims 7 and 9
     (nothing chosen: (0, 0)); dims 3 and 4 at weight +inf (ln_a = -inf for
     both: 3 wins, and its t of +inf converts to INT32_MAX); dims 7, 9, 11
@@ -3774,18 +3769,6 @@ def unaligned_copy(torch, t):
     """``t``'s values in a tensor 4 bytes past a 16-byte boundary."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     return buf[1:].view(t.shape).copy_(t)
-
-
-def cws_numerators() -> np.ndarray:
-    """64 f32 logs of weights for kernel 7's quotient check: 0 (w = 1), the
-    logs of 1 +- 1 ulp, of the largest, least normal and least subnormal
-    f32, of 1e-30, 1e30 and a few round weights, and of |N(0, 1)| and
-    log-uniform weights."""
-    rng = np.random.RandomState(0)
-    w = np.concatenate([[1.0, 1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24, 3.4028235e38, 1.1754944e-38,
-                         1.4e-45, 1e30, 1e-30, 2.0, 0.5, 0.75, 1.5, 10.0],
-                        np.abs(rng.randn(24)) + 1e-3, 10.0 ** rng.uniform(-30, 30, 27)])
-    return np.log(w.astype(np.float32)).astype(np.float32)
 
 
 def floor_near_tie(row, k: int, smp: int, gen) -> bool:

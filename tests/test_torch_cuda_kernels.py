@@ -491,6 +491,74 @@ def test_cws_dense_kernel_on_densified_order_rows(dev, d, s):
     assert torch.equal(_launched(cws, lambda: cws.cws_dense(moved, *tabs)), got)
 
 
+@pytest.mark.parametrize("n_rows,d,s", [(1, 10001, 1), (511, 333, 6), (513, 10001, 100),
+                                         (513, 10001, 128), (1100, 333, 129), (600, 333, 256),
+                                         (300, 333, 1030), (65537, 333, 128)])
+def test_cws_sparse_row_blocks(dev, n_rows, d, s):
+    """Kernel 7 against its plain twin on ``chip_smoke.cws_block_case``'s
+    rows: batches of 1, 511, 513 and 65,537 rows, S from 1 to 1,030, D of
+    333 and 10,001, rows in shuffled order, a fully dense row of D dims
+    among ~2 % rows, ties within a 64-dim chunk, across chunks and at
+    ln_a = +0.0 (the first entry wins)."""
+    import chip_smoke
+
+    tabs, csr, ties = chip_smoke.cws_block_case(torch, d, s, dev, n_rows)
+    want = cws.cws_sparse_plain(*csr, *tabs)
+    assert ties or d < 41 or n_rows < 2
+    for row, dim in ties:
+        assert (want[row, :, 0] == dim).all()
+    before = cws.launches_sparse
+    got = cws.cws_sparse(*csr, *tabs)
+    torch.cuda.synchronize()
+    assert cws.launches_sparse == before + 1
+    assert torch.equal(got, want)
+
+
+def test_cws_sparse_unaligned_tables_and_no_entries(dev):
+    """Kernel 7 on tables 4 bytes past a 16-byte boundary (its scalar
+    loads, vec = 0) equals the aligned call; a batch with nnz 0, and rows of
+    only inactive entries, give (0, 0)."""
+    import chip_smoke
+
+    tabs, csr, _ = chip_smoke.cws_block_case(torch, 10001, 128, dev, 513)
+    aligned = cws.cws_sparse(*csr, *tabs)
+    moved = [chip_smoke.unaligned_copy(torch, t) for t in tabs]
+    assert cws._vec(128, *moved) == 0
+    assert torch.equal(cws.cws_sparse(*csr, *moved), aligned)
+    assert torch.equal(aligned, cws.cws_sparse_plain(*csr, *tabs))
+    empty = (torch.zeros(0, dtype=torch.float32, device=dev),
+             torch.zeros(0, dtype=torch.int32, device=dev),
+             torch.zeros(6, dtype=torch.int64, device=dev))
+    before = cws.launches_sparse
+    got = cws.cws_sparse(*empty, *tabs)
+    torch.cuda.synchronize()
+    assert cws.launches_sparse == before + 1
+    assert got.shape == (5, 128, 2) and not got.any()
+    vals = -torch.ones(9, device=dev)
+    vals[4] = 0.0
+    idx = torch.arange(9, dtype=torch.int32, device=dev)
+    indptr = torch.tensor([0, 4, 9], device=dev)
+    assert not cws.cws_sparse(vals, idx, indptr, *tabs).any()
+
+
+def test_cws_sparse_nan_and_inf_ln_a_never_win(dev):
+    """Parameters that make ln_a NaN (r = 0) or +inf (ln c = +inf) leave
+    the entry unchosen, as a strict < against a +inf carry does: rows equal
+    the plain twin on the rows with those entries inactive (the plain
+    argmin would take a NaN), a row of only such entries gives (0, 0);
+    weights of +inf give ln_a = -inf, the first entry wins, t = INT32_MAX."""
+    import chip_smoke
+
+    tabs, csr, masked = chip_smoke.cws_odd_case(torch, dev)
+    got = cws.cws_sparse(*csr, *tabs)
+    want = cws.cws_sparse_plain(*masked, *tabs)
+    keep = [i for i in range(got.shape[0]) if i != 41]
+    assert torch.equal(got[keep], want[keep])
+    assert not got[40].any()
+    assert (got[41, :, 0] == 3).all() and (got[41, :, 1] == 2 ** 31 - 1).all()
+    assert (got[42, :, 0] == 11).all()
+
+
 def test_kt_slots_on_the_card_match_host(dev):
     rng = np.random.RandomState(3)
     kt = np.stack([rng.randint(0, 10000, (4096, 128)),

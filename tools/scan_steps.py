@@ -7,7 +7,8 @@ rows).
 Usage, from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/scan_steps.py [--kernel scan|rerank|score|cws_dense|cws_sparse]
-                                [--sass] [--reps N] [--p P] [--out DIR] [ROOT ...]
+                                [--sass] [--profile] [--reps N] [--p P] [--out DIR]
+                                [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this
 one); give the same one twice to time it twice (for example ``OLD . .
@@ -38,11 +39,12 @@ that compares staged rows in the scan, score and b-bit kernels; for
 the kernel, and its instructions per load (at P 128: per live candidate
 row); for ``cws_dense`` the innermost loop with the most ``MUFU`` (the
 fold's division), and its instructions per ``MUFU``; for ``cws_sparse``
-the innermost loops with the most ``FRND`` (the floor: its fast fold has
-no ``MUFU``), each with its instructions per ``FRND``; both are warp
-instructions per 32 (entry, sample) folds. With ``--out DIR`` each
-process's full output, and with ``--sass`` each build's whole SASS
-listing, are written under DIR.
+every innermost loop with the most ``FRND`` (the floor, which a fold keeps
+when its reciprocal is staged), each with its instructions per ``FRND``;
+both are warp instructions per 32 (entry, sample) folds. With
+``--profile`` it also prints the device ms of each CUDA kernel in one
+timed call. With ``--out DIR`` each process's full output, and with
+``--sass`` each build's whole SASS listing, are written under DIR.
 
 Prints one JSON line per process and, first, the card's name and power
 limit. Exits non-zero if a build or a parity check failed.
@@ -62,10 +64,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel")
 PTXAS_NAMES = {"scan": "topk_scan", "rerank": "rerank_kernel", "score": "score_kernel",
-               "cws_dense": "cws_dense", "cws_sparse": ("cws_sparse", "cws_bucket")}
+               "cws_dense": "cws_dense", "cws_sparse": "cws_sparse"}
 # kernel -> (function names, the opcode that picks the loop, the per-unit key).
-# Kernel 7's fold has no MUFU on its main path (the reciprocal is staged):
-# its loops are picked by FRND, the floor, once per (entry, sample) fold.
+# Kernel 7's loops are picked by FRND, the floor, once per (entry, sample)
+# fold whether or not the division's reciprocal (MUFU) is in the loop.
 SASS_LOOPS = {"rerank": (("rerank_kernel",), "LDG", "per_load"),
               "cws_dense": (("cws_dense",), "MUFU", "per_mufu"),
               "cws_sparse": (("cws_sparse_kernel",), "FRND", "per_fold")}
@@ -81,14 +83,12 @@ def load_smoke():
     return mod
 
 
-def ptxas_lines(log: str, name) -> list:
-    """ptxas' report lines for the entry functions whose names hold ``name``
-    (or one of a tuple of names)."""
-    names = (name,) if isinstance(name, str) else name
+def ptxas_lines(log: str, name: str) -> list:
+    """ptxas' report lines for the entry function whose name holds ``name``."""
     out, on = [], False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            on = any(n in line for n in names)
+            on = name in line
             if on:
                 out.append(line.split("'")[1] if "'" in line else line.strip())
         elif on and ("registers" in line or "spill" in line or "smem" in line):
@@ -196,8 +196,8 @@ def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
         hit = next((k for k in names if k in name), None)
         if hit is None:
             continue
-        # kernel 7 has two fold loops of equal FRND count: the staged-
-        # reciprocal one (no MUFU) and its exact twin; report both
+        # kernel 7 may hold several loops of one FRND count (a fast and an
+        # exact fold, an unrolled walk): report each
         found = key_loops(body, labels, key) if per == "per_fold" else [
             compare_loop(body, labels, key)]
         for loop in found:
@@ -317,8 +317,22 @@ CALLS = {"scan": scan_calls, "rerank": rerank_calls, "score": score_calls,
          "cws_dense": cws_dense_calls, "cws_sparse": cws_calls}
 
 
+def device_ms(torch, fn) -> dict:
+    """Device ms of each CUDA kernel that one call of ``fn`` runs
+    (``torch.profiler``, after a warm call), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
 def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str,
-           p: int, out_dir) -> int:
+           p: int, out_dir, profile: bool = False) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -336,6 +350,8 @@ def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str
     out.update(getattr(smoke, "steps_info", {}))
     if reps > 0:
         out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
+    if profile:
+        out["device_ms"] = {label: device_ms(torch, fn) for label, fn in calls.items()}
     if sass:
         out["sass"] = sass_report(lib_path, out_dir, tag, kernel)
     print(json.dumps(out), flush=True)
@@ -350,13 +366,15 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5, help="timed calls (0: parity and SASS only)")
     ap.add_argument("--p", type=int, default=128, help="slots per row of the timed table")
     ap.add_argument("--out", help="directory for each process's output and SASS listings")
+    ap.add_argument("--profile", action="store_true",
+                    help="also the device ms of each CUDA kernel in one call (torch.profiler)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tag", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         return worker(args.worker, args.kernel, args.parity, args.sass, args.reps, args.tag,
-                      args.p, args.out)
+                      args.p, args.out, args.profile)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
@@ -368,6 +386,8 @@ def main() -> int:
                "--tag", tag]
         if args.out:
             cmd += ["--out", args.out]
+        if args.profile:
+            cmd.append("--profile")
         if root not in seen:
             cmd.append("--parity")
             if args.sass:
