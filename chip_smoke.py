@@ -249,9 +249,10 @@ W_QUERIES = 1024
 W_TOP_K = 5
 W_CPU_ROWS = 1024  # rows held against a device="cpu" generator
 W_DENSE_ROWS = 16384  # rows densified through kernel 6
-# kernel 7's edges (phase_kernels_cws_blocks): (rows, D, S) around the 512-row
-# blocks, 64-dim chunks and 32-sample slabs of its shared-memory design
-# (csrc/cws.cu), and past its warps' 128 samples
+# kernel 7's edges (phase_kernels_cws_blocks), (rows, D, S): one row and one
+# sample; row counts one off a power of two (511, 513, 65,537); D not a
+# multiple of 64 (333, 10,001); S not a multiple of 4 (1, 6, 129, 1,030) or
+# of 32 (100), and past one warp's 128 samples (129, 256, 1,030)
 CWS_BLOCK_SHAPES = ((513, 10001, 128), (1, 10001, 1), (511, 333, 6), (513, 10001, 100),
                     (1100, 333, 129), (600, 333, 256), (300, 333, 1030), (65537, 333, 128))
 W_ENS_SETS = 8192
@@ -473,9 +474,10 @@ class Smoke:
         rec = self.record[name]
         rec["bound_ms"] = max(t_ops, t_bytes)
         rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        log("  %-13s bound %.4f ms (%.3e integer ops, %.3e f32 ops, %.3e bytes), kernel %s "
-            "ms, plain %s ms" % (name, rec["bound_ms"], int_ops, f32_ops, nbytes, rec["ms"],
-                                 rec["plain_ms"]))
+        log("  %-13s bound %.4f ms (%.3e integer ops, %.3e f32 ops, %.3e unfused f32 ops, "
+            "%.3e bytes), kernel %s ms, plain %s ms"
+            % (name, rec["bound_ms"], int_ops, f32_ops, unfused_ops, nbytes, rec["ms"],
+               rec["plain_ms"]))
 
     def compare(self, name: str, case: str, got, want) -> None:
         """Exact equality of kernel and plain outputs (tuples allowed)."""

@@ -136,6 +136,20 @@ def _padded(w):
     return vals, idx
 
 
+def _csr_padded(vals, idx, indptr):
+    """The JAX package's [B, NZ] form of CSR rows: each row right-padded
+    with (dim 0, weight 0), which is inactive."""
+    lengths = (indptr[1:] - indptr[:-1]).numpy()
+    nz = max(1, int(lengths.max()))
+    vals_p = np.zeros((lengths.size, nz), np.float32)
+    idx_p = np.zeros((lengths.size, nz), np.int32)
+    for i, n in enumerate(lengths):
+        lo = int(indptr[i])
+        vals_p[i, :n] = vals[lo: lo + n].numpy()
+        idx_p[i, :n] = idx[lo: lo + n].numpy()
+    return vals_p, idx_p
+
+
 @pytest.mark.parametrize("b,s,d", [(8, 128, 300), (24, 100, 1000)])
 def test_cws_many_sparse_matches_jax_pallas_and_dense(b, s, d):
     rs, ln_cs, betas = _tables(s, d, seed=7 * d + s)
@@ -197,13 +211,7 @@ def test_cws_sparse_entry_order_matches_jax(s, d):
     assert (got[0] == 0).all()
     for row, dim in ties:
         assert (got[row, :, 0] == dim).all()
-    lengths = (indptr[1:] - indptr[:-1]).numpy()
-    vals_p = np.zeros((16, lengths.max()), np.float32)
-    idx_p = np.zeros((16, lengths.max()), np.int32)
-    for i in range(16):
-        lo, hi = int(indptr[i]), int(indptr[i + 1])
-        vals_p[i, : hi - lo] = vals[lo:hi].numpy()
-        idx_p[i, : hi - lo] = idx[lo:hi].numpy()
+    vals_p, idx_p = _csr_padded(vals, idx, indptr)
     want = np.asarray(jax_cws.cws_many_sparse(vals_p, idx_p, *[t.numpy() for t in tabs]))
     w = np.zeros((16, d), np.float32)  # for the near-tie message only
     for i in range(16):
@@ -214,3 +222,72 @@ def test_cws_sparse_entry_order_matches_jax(s, d):
     assert_kt_equal(got[1:], want[1:], w[1:], rs, betas)
     padded = cws_ops.cws_many_sparse(_t(vals_p), _t(idx_p), *tabs).numpy()
     assert np.array_equal(padded, got)
+
+
+# Kernel 7's edge cases (``chip_smoke.cws_block_case`` and ``cws_odd_case``):
+# the plain twin against the JAX package's padded sparse form. The card tests
+# hold the CUDA kernel to the same plain twin on these rows.
+
+
+def _jax_kt(vals, idx, indptr, tabs):
+    vals_p, idx_p = _csr_padded(vals, idx, indptr)
+    return np.asarray(jax_cws.cws_many_sparse(vals_p, idx_p, *[t.numpy() for t in tabs]))
+
+
+def _active_rows(vals, indptr):
+    pos = (vals > 0).numpy()
+    return [i for i in range(indptr.numel() - 1)
+            if pos[int(indptr[i]): int(indptr[i + 1])].any()]
+
+
+@pytest.mark.parametrize("n_rows,d,s", [(12, 333, 6), (1, 200, 1), (14, 1001, 32),
+                                        (13, 300, 129)])
+def test_block_case_plain_matches_jax(n_rows, d, s):
+    """Shuffled rows, a fully dense shuffled row, ties within and across
+    64-dim chunks and at ln_a = +0.0: the plain twin equals the JAX form on
+    every row with an active entry, and the forced ties go to the first
+    entry."""
+    import chip_smoke
+
+    tabs, (vals, idx, indptr), ties = chip_smoke.cws_block_case(torch, d, s, "cpu", n_rows)
+    got = cws.cws_sparse(vals, idx, indptr, *tabs).numpy()
+    want = _jax_kt(vals, idx, indptr, tabs)
+    rows = _active_rows(vals, indptr)
+    assert rows and np.array_equal(got[rows], want[rows])
+    if n_rows >= 12:  # the special rows lead and close the batch
+        assert len(ties) == 2 * (3 if d > 200 else 2)
+    for row, dim in ties:
+        assert (got[row, :, 0] == dim).all()
+
+
+def test_block_case_zero_ln_a_ties():
+    """Dims 20 and 21 at weight 1.0 with r 1, beta 0.5 and ln c 0.5 give
+    ln_a = +0.0 and t = 0 for both: the first entry, 20, wins."""
+    import chip_smoke
+
+    tabs, (vals, idx, indptr), ties = chip_smoke.cws_block_case(torch, 333, 6, "cpu", 12)
+    row = next(r for r, k in ties if k == 20)
+    lo, hi = int(indptr[row]), int(indptr[row + 1])
+    assert idx[lo:hi].tolist() == [20, 21] and vals[lo:hi].tolist() == [1.0, 1.0]
+    rs, lncs, betas = tabs
+    for j in (20, 21):
+        t = torch.floor(torch.log(vals[lo]) / rs[j] + betas[j])
+        ln_a = lncs[j] - (t - betas[j]) * rs[j] - rs[j]
+        assert (t == 0).all() and (ln_a == 0).all()
+    got = cws.cws_sparse(vals, idx, indptr, *tabs)
+    assert (got[row, :, 0] == 20).all() and (got[row, :, 1] == 0).all()
+
+
+def test_odd_case_masked_rows_match_jax():
+    """``cws_odd_case`` with the NaN (r = 0) and +inf (ln c = +inf) dims
+    made inactive, the rows the card compares the kernel against: the
+    plain twin equals the JAX form on every row but the +inf-weight one,
+    whose t of +inf each framework converts in its own way."""
+    import chip_smoke
+
+    tabs, _, (vals, idx, indptr) = chip_smoke.cws_odd_case(torch, "cpu")
+    got = cws.cws_sparse(vals, idx, indptr, *tabs).numpy()
+    want = _jax_kt(vals, idx, indptr, tabs)
+    rows = [r for r in _active_rows(vals, indptr) if r != 41]
+    assert len(rows) == 41 and np.array_equal(got[rows], want[rows])
+    assert (got[42, :, 0] == 11).all() and not got[40].any()

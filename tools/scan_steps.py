@@ -7,8 +7,7 @@ rows).
 Usage, from the root of a checkout, on a machine with one CUDA card:
 
     python3 tools/scan_steps.py [--kernel scan|rerank|score|cws_dense|cws_sparse]
-                                [--sass] [--profile] [--reps N] [--p P] [--out DIR]
-                                [ROOT ...]
+                                [--sass] [--reps N] [--p P] [--out DIR] [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository (default: this
 one); give the same one twice to time it twice (for example ``OLD . .
@@ -37,14 +36,11 @@ loop (``cuobjdump -sass``): for ``scan`` and ``score`` the innermost loop
 that compares staged rows in the scan, score and b-bit kernels; for
 ``rerank`` the innermost loop with the most global loads in each form of
 the kernel, and its instructions per load (at P 128: per live candidate
-row); for ``cws_dense`` the innermost loop with the most ``MUFU`` (the
-fold's division), and its instructions per ``MUFU``; for ``cws_sparse``
-every innermost loop with the most ``FRND`` (the floor, which a fold keeps
-when its reciprocal is staged), each with its instructions per ``FRND``;
-both are warp instructions per 32 (entry, sample) folds. With
-``--profile`` it also prints the device ms of each CUDA kernel in one
-timed call. With ``--out DIR`` each process's full output, and with
-``--sass`` each build's whole SASS listing, are written under DIR.
+row); for ``cws_dense`` and ``cws_sparse`` the innermost loop with the most
+``MUFU`` (the fold's division), and its instructions per ``MUFU``: warp
+instructions per 32 (entry, sample) folds. With ``--out DIR`` each
+process's full output, and with ``--sass`` each build's whole SASS
+listing, are written under DIR.
 
 Prints one JSON line per process and, first, the card's name and power
 limit. Exits non-zero if a build or a parity check failed.
@@ -65,12 +61,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SASS_KERNELS = ("topk_scan_kernel", "score_kernel", "bbit_kernel")
 PTXAS_NAMES = {"scan": "topk_scan", "rerank": "rerank_kernel", "score": "score_kernel",
                "cws_dense": "cws_dense", "cws_sparse": "cws_sparse"}
-# kernel -> (function names, the opcode that picks the loop, the per-unit key).
-# Kernel 7's loops are picked by FRND, the floor, once per (entry, sample)
-# fold whether or not the division's reciprocal (MUFU) is in the loop.
+# kernel -> (function names, the opcode that picks the loop, the per-unit key)
 SASS_LOOPS = {"rerank": (("rerank_kernel",), "LDG", "per_load"),
               "cws_dense": (("cws_dense",), "MUFU", "per_mufu"),
-              "cws_sparse": (("cws_sparse_kernel",), "FRND", "per_fold")}
+              "cws_sparse": (("cws_sparse",), "MUFU", "per_mufu")}
 
 
 def load_smoke():
@@ -157,28 +151,20 @@ def loops(body, labels) -> list:
     return out
 
 
-def key_loops(body, labels, key: str) -> list:
-    """Innermost loops (no loop inside them) holding the most instructions
-    whose opcode starts with ``key``, longest first."""
+def compare_loop(body, labels, key: str = "LDS.128") -> list:
+    """Instructions of the innermost loop (no loop inside it) with the most
+    instructions whose opcode starts with ``key``: for 16-byte shared
+    loads, the loop that compares staged rows."""
     spans = loops(body, labels)
-    found, best_n = [], 0
+    best, best_n = [], 0
     for lo, hi in spans:
         if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
             continue
         loop = [(a, t) for a, t in body if lo <= a <= hi]
         n_key = sum(1 for _, t in loop if opcode(t).startswith(key))
-        if n_key > best_n:
-            found, best_n = [], n_key
-        if n_key == best_n and n_key:
-            found.append(loop)
-    return sorted(found, key=len, reverse=True)
-
-
-def compare_loop(body, labels, key: str = "LDS.128") -> list:
-    """The longest of :func:`key_loops`: for 16-byte shared loads, the loop
-    that compares staged rows."""
-    found = key_loops(body, labels, key)
-    return found[0] if found else []
+        if n_key > best_n or (n_key == best_n and len(loop) > len(best)):
+            best, best_n = loop, n_key
+    return best
 
 
 def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
@@ -196,19 +182,15 @@ def sass_report(lib_path: str, out_dir, tag: str, kernel: str) -> dict:
         hit = next((k for k in names if k in name), None)
         if hit is None:
             continue
-        # kernel 7 may hold several loops of one FRND count (a fast and an
-        # exact fold, an unrolled walk): report each
-        found = key_loops(body, labels, key) if per == "per_fold" else [
-            compare_loop(body, labels, key)]
-        for loop in found:
-            hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
-            entry = {"function": name[:100], "loop_instructions": len(loop),
-                     "opcodes": dict(hist.most_common())}
-            if per:
-                entry[per] = len(loop) / max(1, hist[key])
-            else:
-                entry["register_compares"] = register_compares(loop)
-            report.setdefault(hit, []).append(entry)
+        loop = compare_loop(body, labels, key)
+        hist = collections.Counter(opcode(t).split(".")[0] for _, t in loop)
+        entry = {"function": name[:100], "loop_instructions": len(loop),
+                 "opcodes": dict(hist.most_common())}
+        if per:
+            entry[per] = len(loop) / max(1, hist[key])
+        else:
+            entry["register_compares"] = register_compares(loop)
+        report.setdefault(hit, []).append(entry)
     return report
 
 
@@ -317,22 +299,8 @@ CALLS = {"scan": scan_calls, "rerank": rerank_calls, "score": score_calls,
          "cws_dense": cws_dense_calls, "cws_sparse": cws_calls}
 
 
-def device_ms(torch, fn) -> dict:
-    """Device ms of each CUDA kernel that one call of ``fn`` runs
-    (``torch.profiler``, after a warm call), by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.device_time_total / 1e3 for e in prof.key_averages()
-            if e.device_time_total > 0}
-
-
 def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str,
-           p: int, out_dir, profile: bool = False) -> int:
+           p: int, out_dir) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -350,8 +318,6 @@ def worker(root: str, kernel: str, parity: bool, sass: bool, reps: int, tag: str
     out.update(getattr(smoke, "steps_info", {}))
     if reps > 0:
         out["ms"] = {label: smoke.time_ms(fn, iters=reps) for label, fn in calls.items()}
-    if profile:
-        out["device_ms"] = {label: device_ms(torch, fn) for label, fn in calls.items()}
     if sass:
         out["sass"] = sass_report(lib_path, out_dir, tag, kernel)
     print(json.dumps(out), flush=True)
@@ -366,15 +332,13 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5, help="timed calls (0: parity and SASS only)")
     ap.add_argument("--p", type=int, default=128, help="slots per row of the timed table")
     ap.add_argument("--out", help="directory for each process's output and SASS listings")
-    ap.add_argument("--profile", action="store_true",
-                    help="also the device ms of each CUDA kernel in one call (torch.profiler)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tag", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         return worker(args.worker, args.kernel, args.parity, args.sass, args.reps, args.tag,
-                      args.p, args.out, args.profile)
+                      args.p, args.out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
@@ -386,8 +350,6 @@ def main() -> int:
                "--tag", tag]
         if args.out:
             cmd += ["--out", args.out]
-        if args.profile:
-            cmd.append("--profile")
         if root not in seen:
             cmd.append("--parity")
             if args.sass:
