@@ -2,7 +2,8 @@
 
 One module per kernel, each with its plain PyTorch twin and a ``launches``
 counter that the wrapper bumps where it launches the kernel and nowhere
-else:
+else. Each wrapper's body is the ``dstt.kernel.<module>`` span while a
+profiler records (:mod:`datasketch_tpu_torch.utils.profiling`):
 
 - :mod:`~datasketch_tpu_torch.kernels.minhash_sign` -- kernel 1, signatures
 - :mod:`~datasketch_tpu_torch.kernels.lsh_scan` -- kernel 2, fused top-k scan

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["bbit_counts", "bbit_counts_plain", "lsb_mask", "SLOT_SIZES", "MAX_WORDS", "launches"]
 
@@ -73,29 +74,30 @@ def bbit_counts(q_packed: torch.Tensor, db_packed: torch.Tensor, s: int) -> torc
     """int32[Q, T] counts of equal s-bit slots of int32[Q, W] x int32[T, W]
     packed rows, the zero padding slots past num_perm included (callers
     subtract them), s in :data:`SLOT_SIZES`."""
-    if q_packed.device.type == "cpu":
-        return bbit_counts_plain(q_packed, db_packed, s)
-    build.require_cuda("bbit_counts", q_packed, db_packed)
-    _check_s(s)
-    nq, w = q_packed.shape
-    nt = db_packed.shape[0]
-    if (db_packed.dim() != 2 or db_packed.shape[1] != w or q_packed.dtype != torch.int32
-            or db_packed.dtype != torch.int32):
-        raise ValueError("bbit_counts: want int32 [Q, W] and [T, W]")
-    if not 1 <= w <= MAX_WORDS or nq > _MAX_QUERIES:
-        raise ValueError("bbit_counts: takes 1 <= W <= %d and Q <= %d, got W %d, Q %d"
-                         % (MAX_WORDS, _MAX_QUERIES, w, nq))
-    out = torch.empty((nq, nt), dtype=torch.int32, device=q_packed.device)
-    if nq == 0 or nt == 0:
+    with span("dstt.kernel.bbit"):
+        if q_packed.device.type == "cpu":
+            return bbit_counts_plain(q_packed, db_packed, s)
+        build.require_cuda("bbit_counts", q_packed, db_packed)
+        _check_s(s)
+        nq, w = q_packed.shape
+        nt = db_packed.shape[0]
+        if (db_packed.dim() != 2 or db_packed.shape[1] != w or q_packed.dtype != torch.int32
+                or db_packed.dtype != torch.int32):
+            raise ValueError("bbit_counts: want int32 [Q, W] and [T, W]")
+        if not 1 <= w <= MAX_WORDS or nq > _MAX_QUERIES:
+            raise ValueError("bbit_counts: takes 1 <= W <= %d and Q <= %d, got W %d, Q %d"
+                             % (MAX_WORDS, _MAX_QUERIES, w, nq))
+        out = torch.empty((nq, nt), dtype=torch.int32, device=q_packed.device)
+        if nq == 0 or nt == 0:
+            return out
+        global launches
+        launches += 1
+        err = build.library().ds_bbit_counts(
+            q_packed.data_ptr(), db_packed.data_ptr(), nq, nt, w, s, out.data_ptr(),
+            build.stream_ptr(q_packed),
+        )
+        build.check(err, "ds_bbit_counts")
         return out
-    global launches
-    launches += 1
-    err = build.library().ds_bbit_counts(
-        q_packed.data_ptr(), db_packed.data_ptr(), nq, nt, w, s, out.data_ptr(),
-        build.stream_ptr(q_packed),
-    )
-    build.check(err, "ds_bbit_counts")
-    return out
 
 
 def _check_s(s: int) -> None:

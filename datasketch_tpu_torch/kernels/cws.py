@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
     "cws_dense",
@@ -132,24 +133,25 @@ def cws_dense(weights, rs_t, lncs_t, betas_t):
         weights: f32[B, D]; entries <= 0 are inactive.
         rs_t, lncs_t, betas_t: f32[D, S] transposed generator parameters.
     """
-    if weights.device.type == "cpu":
-        return cws_dense_plain(weights, rs_t, lncs_t, betas_t)
-    build.require_cuda("cws_dense", weights, rs_t, lncs_t, betas_t)
-    if weights.dtype != torch.float32 or weights.dim() != 2:
-        raise ValueError("cws_dense: want f32 weights [B, D]")
-    _check_tables("cws_dense", weights.shape[1], rs_t, lncs_t, betas_t)
-    b, d = weights.shape
-    s = rs_t.shape[1]
-    out = torch.empty((b, s, 2), dtype=torch.int32, device=weights.device)
-    global launches
-    launches += 1
-    err = build.library().ds_cws_dense(
-        weights.data_ptr(), rs_t.data_ptr(), lncs_t.data_ptr(), betas_t.data_ptr(),
-        b, d, s, _vec(s, rs_t, lncs_t, betas_t, out), out.data_ptr(),
-        build.stream_ptr(weights),
-    )
-    build.check(err, "ds_cws_dense")
-    return out
+    with span("dstt.kernel.cws"):
+        if weights.device.type == "cpu":
+            return cws_dense_plain(weights, rs_t, lncs_t, betas_t)
+        build.require_cuda("cws_dense", weights, rs_t, lncs_t, betas_t)
+        if weights.dtype != torch.float32 or weights.dim() != 2:
+            raise ValueError("cws_dense: want f32 weights [B, D]")
+        _check_tables("cws_dense", weights.shape[1], rs_t, lncs_t, betas_t)
+        b, d = weights.shape
+        s = rs_t.shape[1]
+        out = torch.empty((b, s, 2), dtype=torch.int32, device=weights.device)
+        global launches
+        launches += 1
+        err = build.library().ds_cws_dense(
+            weights.data_ptr(), rs_t.data_ptr(), lncs_t.data_ptr(), betas_t.data_ptr(),
+            b, d, s, _vec(s, rs_t, lncs_t, betas_t, out), out.data_ptr(),
+            build.stream_ptr(weights),
+        )
+        build.check(err, "ds_cws_dense")
+        return out
 
 
 def cws_sparse(vals, idx, indptr, rs_t, lncs_t, betas_t):
@@ -163,34 +165,35 @@ def cws_sparse(vals, idx, indptr, rs_t, lncs_t, betas_t):
         indptr: int64[B + 1] row offsets into ``vals`` / ``idx``.
         rs_t, lncs_t, betas_t: f32[D, S] transposed generator parameters.
     """
-    if vals.device.type == "cpu":
-        return cws_sparse_plain(vals, idx, indptr, rs_t, lncs_t, betas_t)
-    build.require_cuda("cws_sparse", vals, idx, indptr, rs_t, lncs_t, betas_t)
-    if (vals.dtype != torch.float32 or idx.dtype != torch.int32
-            or indptr.dtype != torch.int64 or vals.dim() != 1
-            or idx.shape != vals.shape or indptr.dim() != 1):
-        raise ValueError("cws_sparse: want f32 vals[nnz], int32 idx[nnz], int64 indptr[B + 1]")
-    _check_tables("cws_sparse", None, rs_t, lncs_t, betas_t)
-    b = indptr.shape[0] - 1
-    if b < 0:
-        raise ValueError("cws_sparse: indptr needs at least one offset")
-    # one fetch: the dim range and the offsets' order and ends, so the
-    # kernel never reads outside vals / idx or the tables
-    dims = torch.stack(list(torch.aminmax(idx))) if idx.numel() else idx.new_zeros(2)
-    stats = torch.cat([dims.long(), indptr[[0, -1]],
-                       (indptr[1:] < indptr[:-1]).sum().reshape(1)]).tolist()
-    if stats[0] < 0 or stats[1] >= rs_t.shape[0]:
-        raise ValueError("cws_sparse: dims must lie in [0, %d)" % rs_t.shape[0])
-    if stats[2] < 0 or stats[3] > vals.numel() or stats[4]:
-        raise ValueError("cws_sparse: indptr must rise from >= 0 to <= nnz")
-    s = rs_t.shape[1]
-    out = torch.empty((b, s, 2), dtype=torch.int32, device=vals.device)
-    global launches_sparse
-    launches_sparse += 1
-    err = build.library().ds_cws_sparse(
-        vals.data_ptr(), idx.data_ptr(), indptr.data_ptr(), rs_t.data_ptr(),
-        lncs_t.data_ptr(), betas_t.data_ptr(), b, s,
-        _vec(s, rs_t, lncs_t, betas_t, out), out.data_ptr(), build.stream_ptr(vals),
-    )
-    build.check(err, "ds_cws_sparse")
-    return out
+    with span("dstt.kernel.cws"):
+        if vals.device.type == "cpu":
+            return cws_sparse_plain(vals, idx, indptr, rs_t, lncs_t, betas_t)
+        build.require_cuda("cws_sparse", vals, idx, indptr, rs_t, lncs_t, betas_t)
+        if (vals.dtype != torch.float32 or idx.dtype != torch.int32
+                or indptr.dtype != torch.int64 or vals.dim() != 1
+                or idx.shape != vals.shape or indptr.dim() != 1):
+            raise ValueError("cws_sparse: want f32 vals[nnz], int32 idx[nnz], int64 indptr[B + 1]")
+        _check_tables("cws_sparse", None, rs_t, lncs_t, betas_t)
+        b = indptr.shape[0] - 1
+        if b < 0:
+            raise ValueError("cws_sparse: indptr needs at least one offset")
+        # one fetch: the dim range and the offsets' order and ends, so the
+        # kernel never reads outside vals / idx or the tables
+        dims = torch.stack(list(torch.aminmax(idx))) if idx.numel() else idx.new_zeros(2)
+        stats = torch.cat([dims.long(), indptr[[0, -1]],
+                           (indptr[1:] < indptr[:-1]).sum().reshape(1)]).tolist()
+        if stats[0] < 0 or stats[1] >= rs_t.shape[0]:
+            raise ValueError("cws_sparse: dims must lie in [0, %d)" % rs_t.shape[0])
+        if stats[2] < 0 or stats[3] > vals.numel() or stats[4]:
+            raise ValueError("cws_sparse: indptr must rise from >= 0 to <= nnz")
+        s = rs_t.shape[1]
+        out = torch.empty((b, s, 2), dtype=torch.int32, device=vals.device)
+        global launches_sparse
+        launches_sparse += 1
+        err = build.library().ds_cws_sparse(
+            vals.data_ptr(), idx.data_ptr(), indptr.data_ptr(), rs_t.data_ptr(),
+            lncs_t.data_ptr(), betas_t.data_ptr(), b, s,
+            _vec(s, rs_t, lncs_t, betas_t, out), out.data_ptr(), build.stream_ptr(vals),
+        )
+        build.check(err, "ds_cws_sparse")
+        return out

@@ -21,6 +21,7 @@ import torch
 from datasketch_tpu_torch.device import inv_width
 from datasketch_tpu_torch.kernels import build, tiling
 from datasketch_tpu_torch.kernels.score import score_matrix_plain
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
     "topk_scan",
@@ -125,18 +126,19 @@ def topk_scan(db, q, k: int, n_valid: int, alive=None, cutoff: float = 0.0):
         ids int32[Q, k] and scores f32[Q, k] in (score desc, id asc) order,
         empty slots (-1, -1.0); counts int32[Q] of hits.
     """
-    _check_k(k)
-    if q.device.type == "cpu":
-        return topk_scan_plain(db, q, k, n_valid, alive, cutoff)
-    tensors = (db, q) if alive is None else (db, q, alive)
-    build.require_cuda("topk_scan", *tensors)
-    _check_sigs("topk_scan", db, q)
-    if alive is not None and (alive.dtype != torch.bool or alive.shape[0] < db.shape[0]):
-        raise ValueError("topk_scan: alive must be bool[N]")
-    global launches
-    launches += 1
-    return _launch(db, q, k, n_valid, alive, min_hit_count(cutoff, db.shape[1]),
-                   None, None, 0.0)
+    with span("dstt.kernel.lsh_scan"):
+        _check_k(k)
+        if q.device.type == "cpu":
+            return topk_scan_plain(db, q, k, n_valid, alive, cutoff)
+        tensors = (db, q) if alive is None else (db, q, alive)
+        build.require_cuda("topk_scan", *tensors)
+        _check_sigs("topk_scan", db, q)
+        if alive is not None and (alive.dtype != torch.bool or alive.shape[0] < db.shape[0]):
+            raise ValueError("topk_scan: alive must be bool[N]")
+        global launches
+        launches += 1
+        return _launch(db, q, k, n_valid, alive, min_hit_count(cutoff, db.shape[1]),
+                       None, None, 0.0)
 
 
 def containment_topk(db, sizes, q, q_sizes, k: int, cutoff: float):
@@ -158,19 +160,20 @@ def containment_topk(db, sizes, q, q_sizes, k: int, cutoff: float):
         ids int32[Q, k] and containment f32[Q, k] in (c desc, id asc)
         order, empty slots (-1, -1.0); counts int32[Q] of hits.
     """
-    _check_k(k)
-    if q.device.type == "cpu":
-        return containment_topk_plain(db, sizes, q, q_sizes, k, cutoff)
-    build.require_cuda("containment_topk", db, sizes, q, q_sizes)
-    _check_sigs("containment_topk", db, q)
-    if sizes.dtype != torch.int32 or sizes.shape != (db.shape[0],):
-        raise ValueError("containment_topk: sizes must be int32[N]")
-    if q_sizes.dtype != torch.int32 or q_sizes.shape != (q.shape[0],):
-        raise ValueError("containment_topk: q_sizes must be int32[Q]")
-    global launches_sizes
-    launches_sizes += 1
-    return _launch(db, q, k, db.shape[0], None, 0, sizes, q_sizes,
-                   float(np.float32(cutoff)))
+    with span("dstt.kernel.lsh_scan"):
+        _check_k(k)
+        if q.device.type == "cpu":
+            return containment_topk_plain(db, sizes, q, q_sizes, k, cutoff)
+        build.require_cuda("containment_topk", db, sizes, q, q_sizes)
+        _check_sigs("containment_topk", db, q)
+        if sizes.dtype != torch.int32 or sizes.shape != (db.shape[0],):
+            raise ValueError("containment_topk: sizes must be int32[N]")
+        if q_sizes.dtype != torch.int32 or q_sizes.shape != (q.shape[0],):
+            raise ValueError("containment_topk: q_sizes must be int32[Q]")
+        global launches_sizes
+        launches_sizes += 1
+        return _launch(db, q, k, db.shape[0], None, 0, sizes, q_sizes,
+                       float(np.float32(cutoff)))
 
 
 def _check_k(k: int) -> None:

@@ -13,6 +13,7 @@ import torch
 from datasketch_tpu_torch.device import u32_bits, u32_to_i32
 from datasketch_tpu_torch.kernels import build
 from datasketch_tpu_torch.ops.hashing import MAX_HASH, mix32, permute_hash
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["minhash_sign", "minhash_sign_plain", "launches"]
 
@@ -54,22 +55,23 @@ def minhash_sign(flat, starts, lengths, a, b, mix: bool = False):
         a, b: int64[P] permutation parameters (< 2**61).
         mix: apply fmix32 to each token first (raw token ids).
     """
-    if flat.device.type == "cpu":
-        return minhash_sign_plain(flat, starts, lengths, a, b, mix)
-    build.require_cuda("minhash_sign", flat, starts, lengths, a, b)
-    if flat.dtype != torch.int32 or starts.dtype != torch.int64 or (
-        lengths.dtype != torch.int32
-        or a.dtype != torch.int64
-        or b.dtype != torch.int64
-    ):
-        raise TypeError("minhash_sign: want int32 flat/lengths, int64 starts/a/b")
-    n_docs, p = lengths.shape[0], a.shape[0]
-    out = torch.empty((n_docs, p), dtype=torch.int32, device=flat.device)
-    global launches
-    launches += 1
-    err = build.library().ds_minhash_sign(
-        flat.data_ptr(), starts.data_ptr(), lengths.data_ptr(), a.data_ptr(),
-        b.data_ptr(), n_docs, p, int(mix), out.data_ptr(), build.stream_ptr(flat),
-    )
-    build.check(err, "ds_minhash_sign")
-    return out
+    with span("dstt.kernel.minhash_sign"):
+        if flat.device.type == "cpu":
+            return minhash_sign_plain(flat, starts, lengths, a, b, mix)
+        build.require_cuda("minhash_sign", flat, starts, lengths, a, b)
+        if flat.dtype != torch.int32 or starts.dtype != torch.int64 or (
+            lengths.dtype != torch.int32
+            or a.dtype != torch.int64
+            or b.dtype != torch.int64
+        ):
+            raise TypeError("minhash_sign: want int32 flat/lengths, int64 starts/a/b")
+        n_docs, p = lengths.shape[0], a.shape[0]
+        out = torch.empty((n_docs, p), dtype=torch.int32, device=flat.device)
+        global launches
+        launches += 1
+        err = build.library().ds_minhash_sign(
+            flat.data_ptr(), starts.data_ptr(), lengths.data_ptr(), a.data_ptr(),
+            b.data_ptr(), n_docs, p, int(mix), out.data_ptr(), build.stream_ptr(flat),
+        )
+        build.check(err, "ds_minhash_sign")
+        return out

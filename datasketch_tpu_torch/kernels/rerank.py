@@ -12,6 +12,7 @@ import torch
 
 from datasketch_tpu_torch.device import counts_to_scores
 from datasketch_tpu_torch.kernels import build
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["rerank_scores", "rerank_scores_plain", "launches"]
 
@@ -44,19 +45,20 @@ def rerank_scores(db, q, cand):
         q: int32[Q, P] query signatures.
         cand: int32[Q, C] candidate row ids, -1 = none.
     """
-    if q.device.type == "cpu":
-        return rerank_scores_plain(db, q, cand)
-    build.require_cuda("rerank_scores", db, q, cand)
-    nq, c = cand.shape
-    p = q.shape[1]
-    if db.shape[1] != p or cand.dtype != torch.int32 or db.dtype != torch.int32:
-        raise ValueError("rerank_scores: want int32 db [N, P], q [Q, P], cand [Q, C]")
-    out = torch.empty((nq, c), dtype=torch.float32, device=q.device)
-    global launches
-    launches += 1
-    err = build.library().ds_rerank(
-        db.data_ptr(), q.data_ptr(), cand.data_ptr(), db.shape[0], nq, c, p,
-        out.data_ptr(), build.stream_ptr(q),
-    )
-    build.check(err, "ds_rerank")
-    return out
+    with span("dstt.kernel.rerank"):
+        if q.device.type == "cpu":
+            return rerank_scores_plain(db, q, cand)
+        build.require_cuda("rerank_scores", db, q, cand)
+        nq, c = cand.shape
+        p = q.shape[1]
+        if db.shape[1] != p or cand.dtype != torch.int32 or db.dtype != torch.int32:
+            raise ValueError("rerank_scores: want int32 db [N, P], q [Q, P], cand [Q, C]")
+        out = torch.empty((nq, c), dtype=torch.float32, device=q.device)
+        global launches
+        launches += 1
+        err = build.library().ds_rerank(
+            db.data_ptr(), q.data_ptr(), cand.data_ptr(), db.shape[0], nq, c, p,
+            out.data_ptr(), build.stream_ptr(q),
+        )
+        build.check(err, "ds_rerank")
+        return out

@@ -12,6 +12,7 @@ import torch
 
 from datasketch_tpu_torch.device import counts_to_scores
 from datasketch_tpu_torch.kernels import build, tiling
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["score_matrix", "score_matrix_plain", "eq_counts_plain", "launches"]
 
@@ -38,20 +39,21 @@ def score_matrix_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
 
 def score_matrix(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """f32[Q, T] = mean slot equality of int32[Q, P] x int32[T, P]."""
-    if q.device.type == "cpu":
-        return score_matrix_plain(q, db)
-    build.require_cuda("score_matrix", q, db)
-    nq, p = q.shape
-    nt = db.shape[0]
-    if db.shape[1] != p or q.dtype != torch.int32 or db.dtype != torch.int32:
-        raise ValueError("score_matrix: want int32 [Q, P] and [T, P]")
-    out = torch.empty((nq, nt), dtype=torch.float32, device=q.device)
-    lib = build.library()
-    splits, rows = tiling.grid(nq, nt, build.num_sms(q),
-                               tiling.blocks_per_sm(lib, "ds_score_blocks_per_sm", q.device, p))
-    global launches
-    launches += 1
-    err = lib.ds_score_matrix(q.data_ptr(), db.data_ptr(), nq, nt, p, splits, rows,
-                              out.data_ptr(), build.stream_ptr(q))
-    build.check(err, "ds_score_matrix")
-    return out
+    with span("dstt.kernel.score"):
+        if q.device.type == "cpu":
+            return score_matrix_plain(q, db)
+        build.require_cuda("score_matrix", q, db)
+        nq, p = q.shape
+        nt = db.shape[0]
+        if db.shape[1] != p or q.dtype != torch.int32 or db.dtype != torch.int32:
+            raise ValueError("score_matrix: want int32 [Q, P] and [T, P]")
+        out = torch.empty((nq, nt), dtype=torch.float32, device=q.device)
+        lib = build.library()
+        splits, rows = tiling.grid(nq, nt, build.num_sms(q),
+                                   tiling.blocks_per_sm(lib, "ds_score_blocks_per_sm", q.device, p))
+        global launches
+        launches += 1
+        err = lib.ds_score_matrix(q.data_ptr(), db.data_ptr(), nq, nt, p, splits, rows,
+                                  out.data_ptr(), build.stream_ptr(q))
+        build.check(err, "ds_score_matrix")
+        return out

@@ -41,6 +41,7 @@ from datasketch_tpu_torch.device import as_sig_tensor, resolve_device, to_numpy_
 from datasketch_tpu_torch.hashfunc import device_hash, sha1_hash32, xxhash_hash32
 from datasketch_tpu_torch.ops import cminhash, minhash_ops, oph, text_ops
 from datasketch_tpu_torch.ops.hashing import mix32_np
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["MinHash"]
 
@@ -118,11 +119,13 @@ def _budget_chunks(sorted_lengths, budget: int = _TOKEN_BUDGET):
 
 def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``dev``; CUDA uploads go through pinned
-    memory with a ``non_blocking`` copy."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
+    memory with a ``non_blocking`` copy (the ``dstt.upload.chunk`` span:
+    the pinning and the copy's enqueue)."""
+    with span("dstt.upload.chunk"):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if dev.type != "cuda":
+            return t
+        return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _id_tokens(chunk) -> np.ndarray:
@@ -144,15 +147,22 @@ def _id_tokens(chunk) -> np.ndarray:
 
 def _native_tokens(chunk, algo: int, dev: torch.device) -> torch.Tensor:
     """Native hashes (``algo``) of a chunk's bytes tokens, flat, on
-    ``dev``: hashed straight into pinned memory when ``dev`` is a card."""
-    chunk = [d if isinstance(d, list) else list(d) for d in chunk]
-    total = sum(map(len, chunk))
-    buf = torch.empty(
-        max(1, total), dtype=torch.int32, pin_memory=dev.type == "cuda"
-    )
-    native.hash_ragged(chunk, out=buf.numpy().view(np.uint32), algo=algo)
-    buf = buf[:total]
-    return buf.to(dev, non_blocking=True) if dev.type == "cuda" else buf
+    ``dev``: hashed straight into pinned memory when ``dev`` is a card.
+    The walk over the chunk's documents, the buffer and the hashing are
+    the ``dstt.front.tokens`` span; the copy's enqueue is
+    ``dstt.upload.chunk``."""
+    with span("dstt.front.tokens"):
+        chunk = [d if isinstance(d, list) else list(d) for d in chunk]
+        total = sum(map(len, chunk))
+        buf = torch.empty(
+            max(1, total), dtype=torch.int32, pin_memory=dev.type == "cuda"
+        )
+        native.hash_ragged(chunk, out=buf.numpy().view(np.uint32), algo=algo)
+        buf = buf[:total]
+    if dev.type != "cuda":
+        return buf
+    with span("dstt.upload.chunk"):
+        return buf.to(dev, non_blocking=True)
 
 
 def _native_shingles(chunk, k: int, width: int, algo: int, dev: torch.device):
@@ -471,46 +481,51 @@ class MinHash:
         """
         if out not in ("host", "device"):
             raise ValueError("out must be 'host' or 'device'")
-        proto = cls(**minhash_kwargs)
-        perms = proto._custom_permutations()
-        _check_scheme(scheme, perms)
-        docs = b if isinstance(b, list) else list(b)
-        docs = [d if hasattr(d, "__len__") else list(d) for d in docs]
-        n, p = len(docs), proto.num_perm
-        if proto._device_mode == "disable":
-            host = np.zeros((n, p), dtype=np.uint32)
-            for i, m in enumerate(cls.bulk(docs, scheme=scheme, **minhash_kwargs)):
-                host[i] = m.hashvalues
-            return as_sig_tensor(host, resolve_device(device)) if out == "device" else host
-        dev = resolve_device(device)
-        result = torch.empty((n, p), dtype=torch.int32, device=dev)
-        use_ids = proto.hashfunc is device_hash
-        order = sorted(range(n), key=lambda i: len(docs[i]))
-        for start, stop in _budget_chunks([len(docs[i]) for i in order]):
-            idx = order[start:stop]
-            chunk = [docs[i] for i in idx]
-            lengths = np.fromiter(map(len, chunk), np.int32, count=len(chunk))
-            if scheme != "permutation":
-                # never the flat or ids paths: hashed on the host, padded
-                padded = _pad_flat(proto._hash_flat(chunk), lengths)
-                sigs = _alt_scheme_signatures(
-                    scheme, _upload(padded.view(np.int32), dev), _upload(lengths, dev),
-                    p, proto.seed,
-                )
-                result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
-                continue
-            if use_ids:
-                flat = _upload(_id_tokens(chunk), dev)
-            elif proto.hashfunc in _NATIVE_ALGO:
-                flat = _native_tokens(chunk, _NATIVE_ALGO[proto.hashfunc], dev)
-            else:
-                flat = _upload(proto._hash_flat(chunk).view(np.int32), dev)
-            sigs = minhash_ops.compute_signatures_ragged(
-                flat, _upload(lengths, dev), proto.seed, p,
-                permutations=perms, mix=use_ids,
-            )
-            result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
-        return result if out == "device" else to_numpy_u32(result)
+        with span("dstt.facade.bulk_signatures"):
+            proto = cls(**minhash_kwargs)
+            perms = proto._custom_permutations()
+            _check_scheme(scheme, perms)
+            with span("dstt.facade.order"):
+                docs = b if isinstance(b, list) else list(b)
+                docs = [d if hasattr(d, "__len__") else list(d) for d in docs]
+            n, p = len(docs), proto.num_perm
+            if proto._device_mode == "disable":
+                host = np.zeros((n, p), dtype=np.uint32)
+                for i, m in enumerate(cls.bulk(docs, scheme=scheme, **minhash_kwargs)):
+                    host[i] = m.hashvalues
+                return as_sig_tensor(host, resolve_device(device)) if out == "device" else host
+            dev = resolve_device(device)
+            result = torch.empty((n, p), dtype=torch.int32, device=dev)
+            use_ids = proto.hashfunc is device_hash
+            with span("dstt.facade.order"):
+                order = sorted(range(n), key=lambda i: len(docs[i]))
+                chunks = _budget_chunks([len(docs[i]) for i in order])
+            for start, stop in chunks:
+                with span("dstt.facade.order"):
+                    idx = order[start:stop]
+                    chunk = [docs[i] for i in idx]
+                    lengths = np.fromiter(map(len, chunk), np.int32, count=len(chunk))
+                if scheme != "permutation":
+                    # never the flat or ids paths: hashed on the host, padded
+                    padded = _pad_flat(proto._hash_flat(chunk), lengths)
+                    sigs = _alt_scheme_signatures(
+                        scheme, _upload(padded.view(np.int32), dev), _upload(lengths, dev),
+                        p, proto.seed,
+                    )
+                else:
+                    if use_ids:
+                        flat = _upload(_id_tokens(chunk), dev)
+                    elif proto.hashfunc in _NATIVE_ALGO:
+                        flat = _native_tokens(chunk, _NATIVE_ALGO[proto.hashfunc], dev)
+                    else:
+                        flat = _upload(proto._hash_flat(chunk).view(np.int32), dev)
+                    sigs = minhash_ops.compute_signatures_ragged(
+                        flat, _upload(lengths, dev), proto.seed, p,
+                        permutations=perms, mix=use_ids,
+                    )
+                with span("dstt.facade.scatter"):
+                    result[_upload(np.asarray(idx, dtype=np.int64), dev)] = sigs
+            return result if out == "device" else to_numpy_u32(result)
 
     @classmethod
     def bulk_from_text(cls, texts: Iterable, k: int = 9, scheme: str = "permutation",

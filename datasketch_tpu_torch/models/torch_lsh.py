@@ -28,6 +28,7 @@ from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.ops.cws_ops import kt_slots, kt_slots_np
 from datasketch_tpu_torch.utils.pipeline import stream_batches
+from datasketch_tpu_torch.utils.profiling import count, span
 
 __all__ = ["TorchMinHashLSH"]
 
@@ -73,6 +74,17 @@ def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
+def _fetch(*xs) -> list:
+    """Result tensors of a batch copied back as numpy arrays (other values
+    unchanged), under the ``dstt.upload.fetch`` span: the wait for the
+    device and the copies. The ``upload.fetch_bytes`` counter adds the
+    bytes copied."""
+    with span("dstt.upload.fetch"):
+        count("upload.fetch_bytes",
+              sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor)))
+        return [_host(x) for x in xs]
+
+
 def _batch_rows(batch):
     """A stream batch as :func:`_as_signature_matrix` takes it: matrices
     and tensors as they are, other iterables as a list."""
@@ -82,17 +94,22 @@ def _batch_rows(batch):
 def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:
     """Host decode of compacted results: each row's valid slots, in order,
     -> keys (with scores when asked). One boolean index and one
-    ``tolist`` per batch; Python touches only the valid slots."""
-    hit = ids_host >= 0
-    found = [keys[p] for p in ids_host[hit].tolist()]
-    if return_scores:
-        found = list(zip(found, sc_host[hit].tolist()))
-    out = []
-    pos = 0
-    for count in hit.sum(axis=1).tolist():
-        out.append(found[pos: pos + count])
-        pos += count
-    return out
+    ``tolist`` per batch; Python touches only the valid slots. Runs under
+    the ``dstt.facade.decode`` span; ``facade.fetched_slots`` counts the
+    id slots read and ``facade.answers`` the entries returned."""
+    with span("dstt.facade.decode"):
+        hit = ids_host >= 0
+        found = [keys[p] for p in ids_host[hit].tolist()]
+        count("facade.fetched_slots", ids_host.size)
+        count("facade.answers", len(found))
+        if return_scores:
+            found = list(zip(found, sc_host[hit].tolist()))
+        out = []
+        pos = 0
+        for n in hit.sum(axis=1).tolist():
+            out.append(found[pos: pos + n])
+            pos += n
+        return out
 
 
 class TorchMinHashLSH:
@@ -392,7 +409,8 @@ class TorchMinHashLSH:
         return torch.where((flat_ids >= 0) & alive_dev[safe], flat_ids, -1)
 
     def _queries(self, minhashes) -> torch.Tensor:
-        q = _as_signature_matrix(minhashes, self.device)
+        with span("dstt.upload.queries"):
+            q = _as_signature_matrix(minhashes, self.device)
         if q.shape[1] != self.in_width:
             raise ValueError(
                 "Expecting minhash with length %d, got %d" % (self.in_width, q.shape[1])
@@ -426,12 +444,13 @@ class TorchMinHashLSH:
         """
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
-        self._flush_pending()
-        cutoff = self.threshold if threshold is None else threshold
-        return self._query_finish(
-            self._query_batch_dispatch(minhashes, cutoff, method, return_scores),
-            return_scores,
-        )
+        with span("dstt.facade.query_batch"):
+            self._flush_pending()
+            cutoff = self.threshold if threshold is None else threshold
+            return self._query_finish(
+                self._query_batch_dispatch(minhashes, cutoff, method, return_scores),
+                return_scores,
+            )
 
     def query_stream(self, batches, threshold: Optional[float] = None,
                      return_scores: bool = False, method: str = "auto", depth: int = 4):
@@ -469,13 +488,14 @@ class TorchMinHashLSH:
         if isinstance(item, int):
             return [[] for _ in range(item)]
         sel_ids, sel_sc, n_match, trunc, max_out, escalate = item
-        n_host = _host(n_match)
+        n_host, = _fetch(n_match)
         if escalate is not None and (n_host > max_out).any():
             return self._query_finish(escalate(), return_scores)
-        self.last_truncated = int(_host(trunc)) + int(
+        ids_host, sc_host, trunc_host = _fetch(sel_ids, sel_sc, trunc)
+        self.last_truncated = int(trunc_host) + int(
             np.maximum(n_host.astype(np.int64) - max_out, 0).sum()
         )
-        return _decode_rows(_host(sel_ids), _host(sel_sc), self._keys, return_scores)
+        return _decode_rows(ids_host, sc_host, self._keys, return_scores)
 
     def _query_dispatch(self, q: torch.Tensor, cutoff: float, method: str,
                         need_scores: bool = True):
@@ -536,11 +556,12 @@ class TorchMinHashLSH:
     def _probe(self, q: torch.Tensor):
         """Band candidates int32[Q, b*cap] with tombstones masked, and the
         truncation count."""
-        q_fps = lsh_ops.band_fingerprints(q, self.b, self.r)
-        ids, trunc = lsh_ops.query_tables(
-            self._sorted_fp, self._sorted_ids, q_fps, cap=self.bucket_cap
-        )
-        return self._mask_dead(ids.reshape(q.shape[0], -1)), trunc
+        with span("dstt.glue.probe"):
+            q_fps = lsh_ops.band_fingerprints(q, self.b, self.r)
+            ids, trunc = lsh_ops.query_tables(
+                self._sorted_fp, self._sorted_ids, q_fps, cap=self.bucket_cap
+            )
+            return self._mask_dead(ids.reshape(q.shape[0], -1)), trunc
 
     def top_k(self, minhashes, k: int, method: str = "auto") -> list:
         """Top-k most similar indexed keys per query, as (key, score) pairs.
@@ -552,8 +573,9 @@ class TorchMinHashLSH:
         """
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
-        self._flush_pending()
-        return self._top_k_finish(self._top_k_batch_dispatch(minhashes, k, method))
+        with span("dstt.facade.top_k"):
+            self._flush_pending()
+            return self._top_k_finish(self._top_k_batch_dispatch(minhashes, k, method))
 
     def top_k_stream(self, batches, k: int, method: str = "auto", depth: int = 4):
         """Pipelined :meth:`top_k`: yields one result list per batch of
@@ -582,9 +604,9 @@ class TorchMinHashLSH:
     def _top_k_finish(self, item) -> list:
         if isinstance(item, int):
             return [[] for _ in range(item)]
-        top_ids, top_sc, trunc = item
-        self.last_truncated = int(_host(trunc))
-        return _decode_rows(_host(top_ids), _host(top_sc), self._keys, True)
+        ids_host, sc_host, trunc_host = _fetch(*item)
+        self.last_truncated = int(trunc_host)
+        return _decode_rows(ids_host, sc_host, self._keys, True)
 
     def _top_k_dispatch(self, q: torch.Tensor, k: int, method: str):
         """One top-k batch on the card: (ids, scores, truncated)."""

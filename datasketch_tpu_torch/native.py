@@ -22,6 +22,7 @@ import threading
 import numpy as np
 
 from datasketch_tpu_torch.kernels.build import BUILD_DIR
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ALGO_SHA1_32",
@@ -126,7 +127,8 @@ def hash_ragged(docs, out: np.ndarray = None, algo: int = ALGO_SHA1_32):
     elif out.dtype != np.uint32 or out.shape[0] < total:
         raise ValueError("out must be uint32 with room for %d tokens" % total)
     flat = out[:total]
-    load().hash_ragged(docs, flat, starts, algo, 0)
+    with span("dstt.front.sha1"):  # the native hasher's call, SHA1 or XXH32
+        load().hash_ragged(docs, flat, starts, algo, 0)
     return flat, lengths
 
 

@@ -28,6 +28,7 @@ import torch
 from datasketch_tpu_torch.device import u32_bits
 from datasketch_tpu_torch.kernels import lsh_scan, rerank, score
 from datasketch_tpu_torch.ops.hashing import mix32
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
     "band_fingerprints",
@@ -264,15 +265,16 @@ def topk_candidates(scores, ids, k: int, max_dup: int = 0):
     Returns:
         (top_ids int32[Q, k], top_scores f32[Q, k]), empty slots (-1, -1).
     """
-    scores = torch.where(ids >= 0, scores, -1.0)
-    if max_dup and scores.shape[1] > k * max_dup:
-        scores, pos = _desc_stable(scores, k * max_dup)
-        ids = torch.gather(ids, 1, pos)
-    ids_s, sc_s, first = _dedupe_sorted(ids, scores)
-    sc_m = torch.where(first, sc_s, -1.0)
-    top_sc, pos = _desc_stable(sc_m, min(k, sc_m.shape[1]))
-    top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
-    return _pad_cols(top_ids, k, -1), _pad_cols(top_sc, k, -1.0)
+    with span("dstt.glue.select"):
+        scores = torch.where(ids >= 0, scores, -1.0)
+        if max_dup and scores.shape[1] > k * max_dup:
+            scores, pos = _desc_stable(scores, k * max_dup)
+            ids = torch.gather(ids, 1, pos)
+        ids_s, sc_s, first = _dedupe_sorted(ids, scores)
+        sc_m = torch.where(first, sc_s, -1.0)
+        top_sc, pos = _desc_stable(sc_m, min(k, sc_m.shape[1]))
+        top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
+        return _pad_cols(top_ids, k, -1), _pad_cols(top_sc, k, -1.0)
 
 
 def threshold_select(scores, ids, cutoff, max_out: int):
@@ -287,37 +289,43 @@ def threshold_select(scores, ids, cutoff, max_out: int):
         (sel_ids int32[Q, max_out], sel_sc f32[Q, max_out], n_match
         int32[Q]); ``n_match`` counts distinct matches before the cap.
     """
-    cut = float(np.float32(cutoff))
-    sc = torch.where((ids >= 0) & (scores >= cut), scores, -1.0)
-    ids_s, sc_s, first = _dedupe_sorted(ids, sc)
-    first &= sc_s >= 0
-    sc_m = torch.where(first, sc_s, -1.0)
-    n_match = first.sum(dim=1, dtype=torch.int32)
-    top_sc, pos = _desc_stable(sc_m, min(max_out, sc_m.shape[1]))
-    top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
-    return _pad_cols(top_ids, max_out, -1), _pad_cols(top_sc, max_out, -1.0), n_match
+    with span("dstt.glue.select"):
+        cut = float(np.float32(cutoff))
+        sc = torch.where((ids >= 0) & (scores >= cut), scores, -1.0)
+        ids_s, sc_s, first = _dedupe_sorted(ids, sc)
+        first &= sc_s >= 0
+        sc_m = torch.where(first, sc_s, -1.0)
+        n_match = first.sum(dim=1, dtype=torch.int32)
+        top_sc, pos = _desc_stable(sc_m, min(max_out, sc_m.shape[1]))
+        top_ids = torch.where(top_sc >= 0, torch.gather(ids_s, 1, pos), -1)
+        return _pad_cols(top_ids, max_out, -1), _pad_cols(top_sc, max_out, -1.0), n_match
 
 
 def unique_compact(ids, max_out: int):
     """Distinct valid ids per row, ascending, in ``max_out`` slots; returns
     (sel_ids int32[Q, max_out], n_distinct int32[Q])."""
-    zeros = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
-    sel_ids, _, n = threshold_select(zeros, ids, -1.0, max_out)
-    return sel_ids, n
+    with span("dstt.glue.select"):
+        zeros = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+        sel_ids, _, n = threshold_select(zeros, ids, -1.0, max_out)
+        return sel_ids, n
 
 
 def _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid,
                      offsets=None, n_buckets: int = 0):
-    q_fps = band_fingerprints(q_sigs, b, r)
-    if offsets is not None:
-        ids, trunc = query_tables_direct(sorted_fp, sorted_ids, offsets, q_fps,
-                                         cap, n_buckets)
-    else:
-        ids, trunc = query_tables(sorted_fp, sorted_ids, q_fps, cap=cap)
-    flat = ids.reshape(q_sigs.shape[0], -1)
-    if n_valid is not None:
-        flat = torch.where(flat < n_valid, flat, -1)
-    return flat, trunc
+    """Band fingerprints and bucket probes of a query batch (the
+    ``dstt.glue.probe`` span): flat candidate ids int32[Q, b * cap] and
+    the truncation count."""
+    with span("dstt.glue.probe"):
+        q_fps = band_fingerprints(q_sigs, b, r)
+        if offsets is not None:
+            ids, trunc = query_tables_direct(sorted_fp, sorted_ids, offsets, q_fps,
+                                             cap, n_buckets)
+        else:
+            ids, trunc = query_tables(sorted_fp, sorted_ids, q_fps, cap=cap)
+        flat = ids.reshape(q_sigs.shape[0], -1)
+        if n_valid is not None:
+            flat = torch.where(flat < n_valid, flat, -1)
+        return flat, trunc
 
 
 def query_candidates_fused(sorted_fp, sorted_ids, q_sigs, b: int, r: int,

@@ -18,6 +18,7 @@ import torch
 from datasketch_tpu_torch.device import counts_to_scores, u32_bits, u32_to_i32
 from datasketch_tpu_torch.kernels import minhash_sign, score
 from datasketch_tpu_torch.ops.hashing import MAX_HASH, MERSENNE_PRIME
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
     "MERSENNE_PRIME",
@@ -130,17 +131,21 @@ def compute_signatures_ragged(flat: torch.Tensor, lengths: torch.Tensor,
         mix: ``flat`` holds raw token ids; hash them on the card (fmix32).
     Returns:
         int32[B, num_perm] (uint32 bits) on ``flat``'s device.
+
+    The ``dstt.glue.sign`` span covers the offsets, the widening and the
+    kernel's ``dstt.kernel.minhash_sign``.
     """
-    dev = flat.device
-    lengths = lengths.to(device=dev, dtype=torch.int32)
-    starts = torch.zeros(lengths.shape[0], dtype=torch.int64, device=dev)
-    if lengths.shape[0] > 1:
-        starts[1:] = torch.cumsum(lengths[:-1], dim=0)
-    a, b = perm_tensors(seed, num_perm, dev, permutations)
-    flat = _widen_u32(flat).contiguous()
-    if flat.numel() == 0:
-        flat = torch.zeros(1, dtype=torch.int32, device=dev)
-    return minhash_sign.minhash_sign(flat, starts, lengths.contiguous(), a, b, mix)
+    with span("dstt.glue.sign"):
+        dev = flat.device
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        starts = torch.zeros(lengths.shape[0], dtype=torch.int64, device=dev)
+        if lengths.shape[0] > 1:
+            starts[1:] = torch.cumsum(lengths[:-1], dim=0)
+        a, b = perm_tensors(seed, num_perm, dev, permutations)
+        flat = _widen_u32(flat).contiguous()
+        if flat.numel() == 0:
+            flat = torch.zeros(1, dtype=torch.int32, device=dev)
+        return minhash_sign.minhash_sign(flat, starts, lengths.contiguous(), a, b, mix)
 
 
 def compute_signatures(hashes: torch.Tensor, lengths: torch.Tensor, seed: int,

@@ -6,6 +6,39 @@ Chrome trace in a directory, :func:`time_op` takes the best wall time of a
 call with its result's devices synced, ``device_sync`` waits for the card,
 and :func:`cuda_time_ms` times a callable with CUDA events (host clocks
 around asynchronous launches measure only the enqueue).
+
+Spans and counters of the library's own steps record while a
+``torch.profiler`` session records (:func:`trace`, or any
+``torch.profiler.profile`` of the caller's) and at no other time: there is
+no switch. A span is a ``record_function`` range on the profiler's host
+timeline, beside the CUDA activity it enqueues; with no profiler running,
+:func:`span` returns one shared null context and :func:`count` returns at
+once. Span names are ``dstt.<layer>.<step>``:
+
+- ``dstt.facade.top_k``, ``dstt.facade.query_batch``: a whole
+  ``TorchMinHashLSH`` call; ``dstt.facade.decode``: the host decode of a
+  batch's results into keys (and scores);
+- ``dstt.facade.bulk_signatures``: a whole ``MinHash.bulk_signatures``
+  call; ``dstt.facade.order``: its document normalisation, length sort
+  and chunking; ``dstt.facade.scatter``: a chunk's rows put back in input
+  order;
+- ``dstt.front.tokens``: a chunk's bytes tokens walked into a pinned
+  buffer, and ``dstt.front.sha1`` inside it, the native hasher's call;
+- ``dstt.upload.queries``: a query batch sent to the device;
+  ``dstt.upload.chunk``: a sketching chunk's tokens, lengths or row
+  positions sent to the device; ``dstt.upload.fetch``: a batch's results
+  copied back (the wait for the device included);
+- ``dstt.glue.probe``: band fingerprints and bucket probes;
+  ``dstt.glue.select``: dedupe, cutoff and compaction of candidates;
+  ``dstt.glue.sign``: a sketching chunk's offsets and token widening;
+- ``dstt.kernel.<module>``: a kernel wrapper of
+  :mod:`datasketch_tpu_torch.kernels` (the launch's enqueue on a card, the
+  plain twin on the CPU).
+
+Counters (:func:`counters`): ``upload.fetch_bytes``, the bytes of the
+result tensors a ``TorchMinHashLSH`` batch copies back;
+``facade.fetched_slots``, the id slots among them; ``facade.answers``, the
+entries the host decode returned.
 """
 
 from __future__ import annotations
@@ -16,7 +49,40 @@ from typing import Callable
 
 import torch
 
-__all__ = ["trace", "time_op", "device_sync", "cuda_time_ms"]
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["trace", "time_op", "device_sync", "cuda_time_ms", "span", "count",
+           "counters", "reset_counters"]
+
+_OFF = contextlib.nullcontext()
+_counters: dict = {}
+
+
+def span(name: str):
+    """A context that marks its block as ``name`` on the profiler's host
+    timeline while a ``torch.profiler`` session records, else a shared
+    null context (nothing is made)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while a ``torch.profiler`` session
+    records; a no-op otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of the counters, summed over every profiled stretch since
+    :func:`reset_counters` (or the process's start)."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    """Set every counter back to nothing."""
+    _counters.clear()
 
 
 @contextlib.contextmanager

@@ -101,6 +101,8 @@ def test_time_op_and_trace_on_the_card(dev, tmp_path):
         torch.cuda.synchronize()
     files = glob.glob(os.path.join(str(tmp_path), "*.json"))
     assert files and os.path.getsize(files[0]) > 0
+    with open(files[0]) as fh:
+        assert '"dstt.kernel.lsh_scan"' in fh.read()
     empty = empty_signatures(4, P, device=dev)
     assert empty.is_cuda and bool((empty == -1).all())
 

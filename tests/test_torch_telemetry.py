@@ -1,0 +1,184 @@
+"""The port's spans and counters (``utils/profiling.py``): under a CPU
+``torch.profiler`` the serving and sketching paths record their
+``dstt.<layer>.<step>`` spans, nested as the layers are; with no profiler
+running nothing is recorded and no counter moves; the counters equal the
+bytes copied back and the answers returned."""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from datasketch_tpu_torch import MinHash, TorchMinHashLSH
+from datasketch_tpu_torch.models import torch_lsh
+from datasketch_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+P = 128
+
+SERVE = {
+    "scan": {"dstt.upload.queries", "dstt.kernel.lsh_scan", "dstt.upload.fetch",
+             "dstt.facade.decode"},
+    "bands": {"dstt.upload.queries", "dstt.glue.probe", "dstt.kernel.rerank",
+              "dstt.glue.select", "dstt.upload.fetch", "dstt.facade.decode"},
+}
+SKETCH = {"dstt.facade.bulk_signatures", "dstt.facade.order", "dstt.front.tokens",
+          "dstt.front.sha1", "dstt.upload.chunk", "dstt.glue.sign",
+          "dstt.kernel.minhash_sign", "dstt.facade.scatter"}
+
+
+def _rows(n, seed):
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, 1 << 32, size=(n, P), dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def index():
+    """1,000 rows; queries are 24 near-copies of stored rows and 8
+    unrelated rows, so every path has answers to decode."""
+    sigs = _rows(1000, 1)
+    src = np.random.RandomState(2).randint(0, 1000, 24)
+    near = np.where(np.random.RandomState(3).rand(24, P) < 0.8, sigs[src], _rows(24, 4))
+    ix = TorchMinHashLSH(threshold=0.5, num_perm=P, bucket_cap=16, device="cpu")
+    ix.index(range(1000), sigs)
+    return ix, np.concatenate([near, _rows(8, 5)])
+
+
+def _serve(ix, queries, op, method):
+    if op == "top_k":
+        return ix.top_k(queries, 5, method=method)
+    return ix.query_batch(queries, return_scores=True, method=method)
+
+
+def _spans(prof):
+    """[(name, start, end)] of the ``dstt.`` host spans a profile holds."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.name.startswith("dstt.")]
+
+
+def _inside(spans, child, parent) -> bool:
+    """Every ``child`` span lies inside some ``parent`` span."""
+    outer = [(s, t) for n, s, t in spans if n == parent]
+    inner = [(s, t) for n, s, t in spans if n == child]
+    return bool(inner) and all(any(ps <= s and t <= pt for ps, pt in outer)
+                               for s, t in inner)
+
+
+@pytest.mark.parametrize("op", ["top_k", "query_batch"])
+@pytest.mark.parametrize("method", ["scan", "bands"])
+def test_serving_records_its_spans_inside_the_facade_call(index, op, method):
+    ix, queries = index
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _serve(ix, queries, op, method)
+    spans = _spans(prof)
+    facade = "dstt.facade." + op
+    assert {n for n, _, _ in spans} == SERVE[method] | {facade}
+    assert [n for n, _, _ in spans].count(facade) == 1
+    for name in SERVE[method]:
+        assert _inside(spans, name, facade), name
+    if method == "bands":
+        for name in ("dstt.kernel.rerank", "dstt.glue.select", "dstt.upload.fetch"):
+            assert not _inside(spans, name, "dstt.glue.probe"), name
+
+
+def test_a_tombstoned_index_probes_under_the_same_span(index):
+    ix, queries = index
+    small = TorchMinHashLSH(threshold=0.5, num_perm=P, bucket_cap=16, device="cpu")
+    small.index(range(200), _rows(200, 6))
+    small.remove(3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        small.query_batch(queries, return_scores=True, method="bands")
+    spans = _spans(prof)
+    assert {n for n, _, _ in spans} == SERVE["bands"] | {"dstt.facade.query_batch"}
+    assert _inside(spans, "dstt.glue.probe", "dstt.facade.query_batch")
+
+
+def test_streams_record_the_batch_spans(index):
+    ix, queries = index
+    batches = [queries[:16], queries[16:]]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        list(ix.top_k_stream(batches, 5, method="scan"))
+        list(ix.query_stream(batches, return_scores=True, method="bands"))
+    names = [n for n, _, _ in _spans(prof)]
+    assert set(names) == SERVE["scan"] | SERVE["bands"]
+    assert names.count("dstt.facade.decode") == 4
+
+
+def _docs(n, seed):
+    rng = np.random.default_rng(seed)
+    return [[b"w%05d" % t for t in rng.integers(0, 5000, rng.integers(1, 60))]
+            for _ in range(n)]
+
+
+def test_sketching_records_its_spans_in_layer_order():
+    docs = _docs(300, 7)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = MinHash.bulk_signatures(docs, device="cpu", out="device")
+    spans = _spans(prof)
+    assert {n for n, _, _ in spans} == SKETCH
+    assert [n for n, _, _ in spans].count("dstt.facade.bulk_signatures") == 1
+    nesting = [("dstt.front.sha1", "dstt.front.tokens"),
+               ("dstt.front.tokens", "dstt.facade.bulk_signatures"),
+               ("dstt.kernel.minhash_sign", "dstt.glue.sign"),
+               ("dstt.glue.sign", "dstt.facade.bulk_signatures"),
+               ("dstt.facade.order", "dstt.facade.bulk_signatures"),
+               ("dstt.upload.chunk", "dstt.facade.bulk_signatures"),
+               ("dstt.facade.scatter", "dstt.facade.bulk_signatures")]
+    for child, parent in nesting:
+        assert _inside(spans, child, parent), (child, parent)
+    assert not _inside(spans, "dstt.upload.chunk", "dstt.front.tokens")
+    assert torch.equal(got, MinHash.bulk_signatures(docs, device="cpu", out="device"))
+
+
+def test_nothing_records_without_a_profiler(index, monkeypatch):
+    ix, queries = index
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: made.append(name))
+    before = profiling.counters()
+    for op in ("top_k", "query_batch"):
+        for method in ("scan", "bands"):
+            _serve(ix, queries, op, method)
+    MinHash.bulk_signatures(_docs(50, 8), device="cpu")
+    assert made == []
+    assert profiling.counters() == before
+    assert profiling.span("dstt.facade.top_k") is profiling.span("dstt.glue.probe")
+
+
+@pytest.mark.parametrize("op", ["top_k", "query_batch"])
+@pytest.mark.parametrize("method", ["scan", "bands"])
+def test_counters_equal_the_bytes_fetched_and_the_answers(index, op, method, monkeypatch):
+    ix, queries = index
+    copied = []
+    real = torch_lsh._host
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            copied.append(x)
+        return real(x)
+
+    monkeypatch.setattr(torch_lsh, "_host", host)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = _serve(ix, queries, op, method)
+    got = profiling.counters()
+    profiling.reset_counters()
+    assert got["upload.fetch_bytes"] == sum(x.numel() * x.element_size() for x in copied)
+    answers = sum(map(len, out))
+    assert answers > 0 and got["facade.answers"] == answers
+    # the id slots: [Q, k] for a top-k, [Q, max_out] for a threshold query
+    ids = [x for x in copied if x.dim() == 2 and x.dtype == torch.int32]
+    assert got["facade.fetched_slots"] == sum(x.numel() for x in ids) >= answers
+
+
+def test_counters_are_a_copy_and_reset():
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("x.y", 3)
+        profiling.count("x.y")
+    got = profiling.counters()
+    got["x.y"] = 0
+    assert profiling.counters() == {"x.y": 4}
+    profiling.reset_counters()
+    assert profiling.counters() == {}
