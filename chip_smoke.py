@@ -385,8 +385,14 @@ KERNELS = [
         "source": "datasketch_tpu_torch/csrc/cws.cu",
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:366",
     },
+    {
+        "name": "compact_rows",
+        "module": "compact",
+        "source": "datasketch_tpu_torch/csrc/compact.cu",
+        "replaces": "none: the JAX package copies its padded threshold result whole",
+    },
 ]
-LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix")
+LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix", "compact_rows")
 ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
 WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
 BBIT_PATH = ("bbit_scores",)
@@ -594,6 +600,7 @@ class Smoke:
         self.phase_kernels_scan(data, **(scan_edges or {}))
 
         self.phase_kernels_rerank(data, **(rerank_edges or {}))
+        self.phase_kernels_compact(data)
         self.phase_kernels_score(data, **(score_edges or {}))
 
     def rerank_cand(self, data: dict, c: int = 3200):
@@ -643,6 +650,51 @@ class Smoke:
                 self.compare("rerank", "P %d C %d edges" % (p, ce),
                              k3.rerank_scores(db_e, q_e, cand_e),
                              k3.rerank_scores_plain(db_e, q_e, cand_e))
+
+    def phase_kernels_compact(self, data: dict, edge_w=(1, 31, 32, 33, 257, 3200),
+                              edge_q: int = 37) -> None:
+        """Kernel 8 against its plain version: the threshold result of kernel
+        3's timed list (``threshold_select`` at 0.5, every candidate slot
+        an output slot), then at each W of ``edge_w`` results with -1
+        anywhere in a row (rows empty, sparse, full), with and without
+        scores. Counts and the answers must be equal; places past the
+        answers are never written, so they are not compared."""
+        torch = self.torch
+        from datasketch_tpu_torch.ops import lsh_ops
+
+        k8 = self.kmod("compact_rows")
+        cand = self.rerank_cand(data)
+        scores = self.kmod("rerank").rerank_scores(data["db"], data["q"], cand)
+        ids, sc, _ = lsh_ops.threshold_select(scores, cand, 0.5, cand.shape[1])
+
+        def same(case, ids, sc):
+            got, want = k8.compact_rows(ids, sc), k8.compact_rows_plain(ids, sc)
+            total = int(want[0].sum())
+            self.compare("compact_rows", case,
+                         tuple(x[:total] for x in got[1:] if x is not None) + got[:1],
+                         tuple(x[:total] for x in want[1:] if x is not None) + want[:1])
+            return total
+
+        total = same("Q=%d W=%d threshold 0.5" % tuple(ids.shape), ids, sc)
+        rec = self.record["compact_rows"]
+        rec["ms"] = self.time_ms(lambda: k8.compact_rows(ids, sc), iters=50)
+        rec["plain_ms"] = self.time_ms(lambda: k8.compact_rows_plain(ids, sc), iters=5)
+        # the ids read once to count and once to place, the answers' scores
+        # read, the counts and the answers written
+        self.bound("compact_rows", 2 * 4 * ids.numel() + 4 * ids.shape[0] + 12 * total)
+        g = torch.Generator(device=self.device).manual_seed(14)
+        for w in edge_w:
+            fill = torch.rand((edge_q, 1), generator=g, device=self.device)
+            fill[:3, 0] = torch.tensor([0.0, 1.0, 0.01])
+            keep = torch.rand((edge_q, w), generator=g, device=self.device) < fill
+            e_ids = torch.where(keep, torch.randint(0, 1 << 30, keep.shape, generator=g,
+                                                    device=self.device, dtype=torch.int32), -1)
+            e_sc = torch.where(keep, torch.rand(keep.shape, generator=g, device=self.device),
+                               -1.0)
+            same("W %d holes" % w, e_ids, e_sc)
+            same("W %d ids only" % w, e_ids, None)
+        same("all empty", torch.full((edge_q, 40), -1, dtype=torch.int32, device=self.device),
+             None)
 
     def phase_kernels_score(self, data: dict, edge_t=(1, 63, 64, 65, 8191, 8192),
                             edge_q=(1, 33, 1000), wide=(20000, 4096),
@@ -1439,10 +1491,15 @@ class Smoke:
                   "facade parity: %s last_truncated differs" % label)
 
         def dispatch(ix, method):
+            # the compacted result: answers (ids, scores), match and answer
+            # counts, truncated, max_out; the flat buffers past the answers
+            # are never written
             q = ix._queries(queries)
             out = ix._query_dispatch(q, 0.5, method)
-            return [None if t is None else np.asarray(torch.as_tensor(t).cpu())
-                    for t in out[:4]] + [out[4]]
+            host = [None if t is None else np.asarray(torch.as_tensor(t).cpu())
+                    for t in out[:4]]
+            total = int(host[2][1].sum())
+            return [host[0][:total], host[1][:total]] + host[2:] + [out[4]]
 
         def same_dispatch(method):
             got = [dispatch(ix, method) for ix in pair]

@@ -11,6 +11,8 @@ profiler records (:mod:`datasketch_tpu_torch.utils.profiling`):
 - :mod:`~datasketch_tpu_torch.kernels.score` -- kernel 4, score matrix
 - :mod:`~datasketch_tpu_torch.kernels.bbit` -- kernel 5, packed b-bit counts
 - :mod:`~datasketch_tpu_torch.kernels.cws` -- kernels 6 and 7, CWS (k, t)
+- :mod:`~datasketch_tpu_torch.kernels.compact` -- kernel 8, ragged compaction
+  of a padded threshold result
 
 Nothing is built at import: :func:`datasketch_tpu_torch.kernels.build.library`
 compiles the sources with ``nvcc`` at the first launch.

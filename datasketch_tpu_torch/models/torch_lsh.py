@@ -92,11 +92,12 @@ def _batch_rows(batch):
 
 
 def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:
-    """Host decode of compacted results: each row's valid slots, in order,
-    -> keys (with scores when asked). One boolean index and one
-    ``tolist`` per batch; Python touches only the valid slots. Runs under
-    the ``dstt.facade.decode`` span; ``facade.fetched_slots`` counts the
-    id slots read and ``facade.answers`` the entries returned."""
+    """Host decode of padded results (a top-k's dense ``[Q, k]``): each
+    row's valid slots, in order, -> keys (with scores when asked). One
+    boolean index and one ``tolist`` per batch; Python touches only the
+    valid slots. Runs under the ``dstt.facade.decode`` span;
+    ``facade.fetched_slots`` counts the id slots read and
+    ``facade.answers`` the entries returned."""
     with span("dstt.facade.decode"):
         hit = ids_host >= 0
         found = [keys[p] for p in ids_host[hit].tolist()]
@@ -110,6 +111,37 @@ def _decode_rows(ids_host, sc_host, keys, return_scores: bool) -> list:
             out.append(found[pos: pos + n])
             pos += n
         return out
+
+
+def _decode_ragged(flat_ids, flat_sc, counts, keys, return_scores: bool) -> list:
+    """Host decode of a compacted threshold result
+    (:func:`~datasketch_tpu_torch.ops.lsh_ops.compact_rows`): ``flat_ids``
+    holds only the answers, row after row, and ``counts`` how many each
+    row has -> keys (with scores when asked). One ``tolist`` of the
+    answers and a split by ``counts``. Runs under the ``dstt.facade.decode``
+    span; ``facade.fetched_slots`` counts the id slots read (the answers)
+    and ``facade.answers`` the entries returned."""
+    with span("dstt.facade.decode"):
+        found = [keys[p] for p in flat_ids.tolist()]
+        count("facade.fetched_slots", flat_ids.size)
+        count("facade.answers", len(found))
+        if return_scores:
+            found = list(zip(found, flat_sc.tolist()))
+        out = []
+        pos = 0
+        for n in counts.tolist():
+            out.append(found[pos: pos + n])
+            pos += n
+        return out
+
+
+def _compacted(sel_ids, sel_sc, n_match, trunc, max_out: int, escalate):
+    """A padded threshold result compacted on its device: (flat_ids,
+    flat_sc or None, int32[2, Q] of ``n_match`` over each row's answer
+    count, trunc, max_out, escalate). The finish copies the two count rows
+    in one copy and then only the answers."""
+    counts, flat_ids, flat_sc = lsh_ops.compact_rows(sel_ids, sel_sc)
+    return flat_ids, flat_sc, torch.stack([n_match, counts]), trunc, max_out, escalate
 
 
 class TorchMinHashLSH:
@@ -458,7 +490,13 @@ class TorchMinHashLSH:
         of ``batches``, with up to ``depth`` batches in flight
         (:func:`~datasketch_tpu_torch.utils.pipeline.stream_batches`). A
         threshold scan whose match count overflows its first k reruns at
-        the full budget when its batch is finished."""
+        the full budget when its batch is finished.
+
+        Each batch is compacted on the card as in :meth:`query_batch`, but
+        the pipeline starts its copies at dispatch, before the answer
+        count is known, so it copies the flat buffers whole (``Q *
+        max_out`` slots, as many bytes as the padded result); the finish
+        decodes only the answers."""
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
         self._flush_pending()
@@ -483,26 +521,35 @@ class TorchMinHashLSH:
         return self._query_dispatch(q, cutoff, method, self.rerank or return_scores)
 
     def _query_finish(self, item, return_scores: bool) -> list:
-        """Fetch and decode one dispatched threshold batch; a scan whose
+        """Fetch and decode one dispatched threshold batch (see
+        :meth:`_query_dispatch`): the match and answer counts in one copy,
+        then only the ``counts.sum()`` answers (ids, and scores when
+        asked), decoded by :func:`_decode_ragged`. A scan whose
         match count overflowed its first k reruns at the full budget."""
         if isinstance(item, int):
             return [[] for _ in range(item)]
-        sel_ids, sel_sc, n_match, trunc, max_out, escalate = item
-        n_host, = _fetch(n_match)
+        flat_ids, flat_sc, match_counts, trunc, max_out, escalate = item
+        (n_host, counts), = _fetch(match_counts)
         if escalate is not None and (n_host > max_out).any():
             return self._query_finish(escalate(), return_scores)
-        ids_host, sc_host, trunc_host = _fetch(sel_ids, sel_sc, trunc)
+        total = int(counts.sum())
+        ids_host, sc_host, trunc_host = _fetch(
+            flat_ids[:total], flat_sc[:total] if return_scores else None, trunc)
         self.last_truncated = int(trunc_host) + int(
             np.maximum(n_host.astype(np.int64) - max_out, 0).sum()
         )
-        return _decode_rows(ids_host, sc_host, self._keys, return_scores)
+        return _decode_ragged(ids_host, sc_host, counts, self._keys, return_scores)
 
     def _query_dispatch(self, q: torch.Tensor, cutoff: float, method: str,
                         need_scores: bool = True):
-        """One threshold batch enqueued on the card. Returns (sel_ids,
-        sel_sc or None, n_match, truncated, max_out, escalate); ``n_match``
-        counts matches before the ``max_out`` cap, and ``escalate`` (the
-        scan's, else None) reruns the batch at the full budget. Without
+        """One threshold batch enqueued on the card, its result compacted
+        there (:func:`~datasketch_tpu_torch.ops.lsh_ops.compact_rows`).
+        Returns (flat_ids, flat_sc or None, match_counts, truncated,
+        max_out, escalate): the first ``match_counts[1].sum()`` slots of
+        the flat buffers are the answers, row after row, each in its order;
+        ``match_counts`` is int32[2, Q], each query's matches before the
+        ``max_out`` cap over its answer count; ``escalate`` (the scan's,
+        else None) reruns the batch at the full budget. Without
         ``need_scores`` (rerank off, no scores asked) the signature table
         is never read."""
         if method == "auto" and not self.rerank:
@@ -518,16 +565,15 @@ class TorchMinHashLSH:
             max_out = min(self.max_results or 1024, pow2_at_least(self._n_real))
             alive = self._alive_state()[0]
 
-            def scan(k):
-                return lsh_ops.topk_scan(self._sigs, q, k, alive=alive, count_ge=cutoff)
+            def scan(k, escalate=None):
+                ids, sc, n_match = lsh_ops.topk_scan(self._sigs, q, k, alive=alive,
+                                                     count_ge=cutoff)
+                return _compacted(ids, sc, n_match, 0, k, escalate)
 
             # kernel-sized k first; the finish reruns at the full budget
             # only when some query matched more rows than it returned
             k = min(max_out, lsh_ops.lsh_scan.MAX_K)
-            escalate = None
-            if k < max_out:
-                escalate = lambda: scan(max_out) + (0, max_out, None)  # noqa: E731
-            return scan(k) + (0, k, escalate)
+            return scan(k, (lambda: scan(max_out)) if k < max_out else None)
         c = self.b * self.bucket_cap
         max_out = c if self.max_results is None else min(self.max_results, c)
         all_alive = self._alive_state()[1]
@@ -540,18 +586,18 @@ class TorchMinHashLSH:
             else:
                 flat, trunc = self._probe(q)
                 sel_ids, n_match = lsh_ops.unique_compact(flat, max_out)
-            return sel_ids, None, n_match, trunc, max_out, None
+            return _compacted(sel_ids, None, n_match, trunc, max_out, None)
         cut = float(cutoff) if self.rerank else -1.0
         if all_alive:
             sel_ids, sel_sc, n_match, trunc = lsh_ops.query_fused(
                 self._sorted_fp, self._sorted_ids, self._sigs, q, self.b,
                 self.r, self.bucket_cap, cut, max_out,
             )
-            return sel_ids, sel_sc, n_match, trunc, max_out, None
+            return _compacted(sel_ids, sel_sc, n_match, trunc, max_out, None)
         flat, trunc = self._probe(q)
         scores = lsh_ops.rerank_jaccard(self._sigs, q, flat)
         sel_ids, sel_sc, n_match = lsh_ops.threshold_select(scores, flat, cut, max_out)
-        return sel_ids, sel_sc, n_match, trunc, max_out, None
+        return _compacted(sel_ids, sel_sc, n_match, trunc, max_out, None)
 
     def _probe(self, q: torch.Tensor):
         """Band candidates int32[Q, b*cap] with tombstones masked, and the

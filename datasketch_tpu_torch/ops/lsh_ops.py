@@ -17,7 +17,8 @@ Kernels: the rerank is kernel 3 (the ``db_sigs[cand_ids]`` gather fused
 in), the scan is kernel 2 for k <= 128 and a running top-k over kernel 4
 (the score matrix) above that, as in the JAX package; the containment
 scan is kernel 2's sizes mode for k <= 128 and the same running top-k
-over kernel 4 above that.
+over kernel 4 above that. :func:`compact_rows` (kernel 8) has no JAX
+counterpart: it compacts a threshold result before the copy back.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from datasketch_tpu_torch.device import u32_bits
-from datasketch_tpu_torch.kernels import lsh_scan, rerank, score
+from datasketch_tpu_torch.kernels import compact, lsh_scan, rerank, score
 from datasketch_tpu_torch.ops.hashing import mix32
 from datasketch_tpu_torch.utils.profiling import span
 
@@ -41,6 +42,7 @@ __all__ = [
     "topk_candidates",
     "threshold_select",
     "unique_compact",
+    "compact_rows",
     "query_candidates_fused",
     "query_fused",
     "topk_fused",
@@ -308,6 +310,21 @@ def unique_compact(ids, max_out: int):
         zeros = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
         sel_ids, _, n = threshold_select(zeros, ids, -1.0, max_out)
         return sel_ids, n
+
+
+def compact_rows(sel_ids, sel_sc=None):
+    """Ragged compaction of a padded result on its own device, with no host
+    synchronisation (kernel 8 on a card): the slots of ``sel_ids``
+    int32[Q, W] that hold an id (>= 0; -1 is empty, anywhere in a row), row
+    after row, each row in its own order, ties included.
+
+    Returns (counts int32[Q], flat_ids int32[Q * W], flat_sc f32[Q * W] or
+    None when ``sel_sc`` is None): the first ``counts.sum()`` places of the
+    flat tensors (their capacity is ``Q * W``) hold the answers; the rest
+    is not written.
+    """
+    return compact.compact_rows(sel_ids.contiguous(),
+                                None if sel_sc is None else sel_sc.contiguous())
 
 
 def _band_candidates(sorted_fp, sorted_ids, q_sigs, b, r, cap, n_valid,

@@ -37,8 +37,9 @@ once. Span names are ``dstt.<layer>.<step>``:
 
 Counters (:func:`counters`): ``upload.fetch_bytes``, the bytes of the
 result tensors a ``TorchMinHashLSH`` batch copies back;
-``facade.fetched_slots``, the id slots among them; ``facade.answers``, the
-entries the host decode returned.
+``facade.fetched_slots``, the id slots among them (a threshold batch's are
+its answers alone: it is compacted on the device first);
+``facade.answers``, the entries the host decode returned.
 """
 
 from __future__ import annotations

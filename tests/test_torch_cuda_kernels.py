@@ -20,7 +20,16 @@ from datasketch_tpu_torch import (
     TorchMinHashLSHForest,
     WeightedMinHashGenerator,
 )
-from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score, tiling
+from datasketch_tpu_torch.kernels import (
+    bbit,
+    compact,
+    cws,
+    lsh_scan,
+    minhash_sign,
+    rerank,
+    score,
+    tiling,
+)
 from datasketch_tpu_torch.ops import bbit_ops, cws_ops, forest_ops, lsh_ops
 from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -309,6 +318,57 @@ def test_cuda_index_matches_cpu_index(dev):
         assert got[0] == got[1]
         got = [ix.query_batch(queries, return_scores=True, method=method) for ix in pair]
         assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.002, 0.3, 1.0])
+def test_compact_rows_on_the_card_matches_the_cpu(dev, fill):
+    """Kernel 8 on a [1,024, 3,200] result (the bands cell's shape), empty
+    slots anywhere in a row: counts and the answers equal to the plain
+    version's, with and without scores, and to the CPU's."""
+    g = _gen(dev, 31)
+    filled = torch.rand((1024, 3200), generator=g, device=dev) < fill
+    ids = torch.where(filled, torch.randint(0, 1 << 20, filled.shape, generator=g,
+                                            device=dev, dtype=torch.int32), -1)
+    sc = torch.where(filled, torch.rand(filled.shape, generator=g, device=dev), -1.0)
+    for scores in (sc, None):
+        got = _launched(compact, lambda: lsh_ops.compact_rows(ids, scores))
+        want = compact.compact_rows_plain(ids, scores)
+        on_cpu = compact.compact_rows_plain(ids.cpu(), None if scores is None else scores.cpu())
+        total = int(want[0].sum())
+        assert torch.equal(got[0], want[0]) and torch.equal(got[0].cpu(), on_cpu[0])
+        assert (got[2] is None) == (scores is None)
+        for i in (1, 2) if scores is not None else (1,):
+            assert torch.equal(got[i][:total], want[i][:total])
+            assert torch.equal(got[i][:total].cpu(), on_cpu[i][:total])
+
+
+def test_cuda_threshold_paths_match_cpu(dev):
+    """Every threshold path returns its compacted answers as the CPU index
+    does: bands fused and with tombstones, candidates only, the scan and
+    its escalation past 128 matches, a ``max_results`` cap, and streams."""
+    rng = np.random.RandomState(32)
+    sigs = rng.randint(0, 1 << 32, size=(3000, 128), dtype=np.uint64).astype(np.uint32)
+    sigs[2000:2300] = np.where(rng.rand(300, 128) < 0.9, sigs[:1], sigs[2000:2300])
+    queries = np.concatenate([sigs[:2], sigs[2300:2340]])
+    for opts in ({}, {"rerank": False}, {"max_results": 20}):
+        pair = [TorchMinHashLSH(threshold=0.5, bucket_cap=32, device=d, **opts)
+                for d in (dev, "cpu")]
+        for ix in pair:
+            ix.index(range(3000), sigs)
+        methods = ("bands",) if opts.get("rerank") is False else ("scan", "bands")
+        for removed in (False, True):
+            if removed:
+                for ix in pair:
+                    ix.remove(2001)
+            for method in methods:
+                for scores in (False, True):
+                    got = [ix.query_batch(queries, return_scores=scores, method=method)
+                           for ix in pair]
+                    assert got[0] == got[1]
+                    assert pair[0].last_truncated == pair[1].last_truncated
+                got = [list(ix.query_stream([queries[:2], queries[2:]], return_scores=True,
+                                            method=method, depth=2)) for ix in pair]
+                assert got[0] == got[1]
 
 
 def test_lists_of_device_rows_answer_as_the_batch(dev):

@@ -23,6 +23,8 @@ SERVE = {
     "bands": {"dstt.upload.queries", "dstt.glue.probe", "dstt.kernel.rerank",
               "dstt.glue.select", "dstt.upload.fetch", "dstt.facade.decode"},
 }
+# a threshold query compacts its answers on the device by either method
+COMPACT = {"dstt.kernel.compact"}
 SKETCH = {"dstt.facade.bulk_signatures", "dstt.facade.order", "dstt.front.tokens",
           "dstt.front.sha1", "dstt.upload.chunk", "dstt.glue.sign",
           "dstt.kernel.minhash_sign", "dstt.facade.scatter"}
@@ -73,7 +75,8 @@ def test_serving_records_its_spans_inside_the_facade_call(index, op, method):
         _serve(ix, queries, op, method)
     spans = _spans(prof)
     facade = "dstt.facade." + op
-    assert {n for n, _, _ in spans} == SERVE[method] | {facade}
+    compact = COMPACT if op == "query_batch" else set()
+    assert {n for n, _, _ in spans} == SERVE[method] | compact | {facade}
     assert [n for n, _, _ in spans].count(facade) == 1
     for name in SERVE[method]:
         assert _inside(spans, name, facade), name
@@ -90,7 +93,7 @@ def test_a_tombstoned_index_probes_under_the_same_span(index):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         small.query_batch(queries, return_scores=True, method="bands")
     spans = _spans(prof)
-    assert {n for n, _, _ in spans} == SERVE["bands"] | {"dstt.facade.query_batch"}
+    assert {n for n, _, _ in spans} == SERVE["bands"] | COMPACT | {"dstt.facade.query_batch"}
     assert _inside(spans, "dstt.glue.probe", "dstt.facade.query_batch")
 
 
@@ -101,7 +104,7 @@ def test_streams_record_the_batch_spans(index):
         list(ix.top_k_stream(batches, 5, method="scan"))
         list(ix.query_stream(batches, return_scores=True, method="bands"))
     names = [n for n, _, _ in _spans(prof)]
-    assert set(names) == SERVE["scan"] | SERVE["bands"]
+    assert set(names) == SERVE["scan"] | SERVE["bands"] | COMPACT
     assert names.count("dstt.facade.decode") == 4
 
 
@@ -167,9 +170,12 @@ def test_counters_equal_the_bytes_fetched_and_the_answers(index, op, method, mon
     assert got["upload.fetch_bytes"] == sum(x.numel() * x.element_size() for x in copied)
     answers = sum(map(len, out))
     assert answers > 0 and got["facade.answers"] == answers
-    # the id slots: [Q, k] for a top-k, [Q, max_out] for a threshold query
-    ids = [x for x in copied if x.dim() == 2 and x.dtype == torch.int32]
-    assert got["facade.fetched_slots"] == sum(x.numel() for x in ids) >= answers
+    if op == "top_k":  # the id slots: [Q, k]
+        ids = [x for x in copied if x.dim() == 2 and x.dtype == torch.int32]
+        assert got["facade.fetched_slots"] == sum(x.numel() for x in ids) >= answers
+    else:  # only the answers' ids, compacted on the device: a used share of 100 %
+        ids = [x for x in copied if x.dim() == 1 and x.dtype == torch.int32]
+        assert got["facade.fetched_slots"] == sum(x.numel() for x in ids) == answers
 
 
 def test_counters_are_a_copy_and_reset():
