@@ -7,10 +7,11 @@ mode, :func:`containment_topk`). CPU tensors take the plain PyTorch
 version; CUDA tensors launch the kernel or raise. ``launches`` counts the
 plain and mask modes, ``launches_sizes`` the sizes mode.
 
-:func:`running_topk` is the tiled running top-k that the plain versions
-run over :func:`~datasketch_tpu_torch.kernels.score.score_matrix_plain`
-and that ``ops.lsh_ops.topk_scan`` / ``containment_scan`` run over
-kernel 4 for k > 128.
+:func:`running_topk` is the tiled running top-k that
+``ops.lsh_ops.topk_scan`` / ``containment_scan`` run over kernel 4 for
+k > 128 (the ``dstt.glue.running_topk`` span); the plain versions run its
+body over :func:`~datasketch_tpu_torch.kernels.score.score_matrix_plain`
+inside the kernel's own span.
 """
 
 from __future__ import annotations
@@ -53,6 +54,16 @@ def min_hit_count(cutoff: float, p: int) -> int:
 
 def running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
                  score_fn, tile: int = _PLAIN_TILE, sizes=None, q_sizes=None):
+    """Exact top-k over db tiles with a running carry, under the
+    ``dstt.glue.running_topk`` span (arguments and result as
+    :func:`_running_topk`'s)."""
+    with span("dstt.glue.running_topk"):
+        return _running_topk(q, db, k, n_valid, alive, cutoff, score_fn, tile, sizes,
+                             q_sizes)
+
+
+def _running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
+                  score_fn, tile: int = _PLAIN_TILE, sizes=None, q_sizes=None):
     """Exact top-k over db tiles with a running carry.
 
     ``score_fn(q, db_tile)`` gives f32[Q, t] Jaccard estimates. With
@@ -103,13 +114,13 @@ def running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
 
 def topk_scan_plain(db, q, k: int, n_valid: int, alive, cutoff: float):
     """Plain PyTorch twin of the kernel (same arguments, same result)."""
-    return running_topk(q, db, k, n_valid, alive, cutoff, score_matrix_plain)
+    return _running_topk(q, db, k, n_valid, alive, cutoff, score_matrix_plain)
 
 
 def containment_topk_plain(db, sizes, q, q_sizes, k: int, cutoff: float):
     """Plain PyTorch twin of the sizes mode (same arguments, same result)."""
-    return running_topk(q, db, k, db.shape[0], None, cutoff, score_matrix_plain,
-                        sizes=sizes, q_sizes=q_sizes)
+    return _running_topk(q, db, k, db.shape[0], None, cutoff, score_matrix_plain,
+                         sizes=sizes, q_sizes=q_sizes)
 
 
 def topk_scan(db, q, k: int, n_valid: int, alive=None, cutoff: float = 0.0):

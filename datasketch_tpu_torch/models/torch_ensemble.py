@@ -31,9 +31,10 @@ from datasketch_tpu_torch.models.lshensemble import (
     params_for,
 )
 from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
-from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix
+from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix, _fetch
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.utils.pipeline import stream_batches
+from datasketch_tpu_torch.utils.profiling import count, recording, span
 
 __all__ = ["TorchMinHashLSHEnsemble"]
 
@@ -350,17 +351,19 @@ class TorchMinHashLSHEnsemble:
         """
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
-        sizes, q_sigs = self._as_query_batch(queries)
-        if not len(sizes) or not self._tables:
-            return [[] for _ in range(len(sizes))]
-        if q_sigs.shape[1] != self.h:
-            raise ValueError(
-                "Expecting minhash with length %d, got %d" % (self.h, q_sigs.shape[1])
-            )
-        q_pad = pow2_at_least(q_sigs.shape[0], 8)
-        if self._resolve_scan_method(method, q_pad) == "scan":
-            return self._query_scan(q_sigs, sizes)
-        return self._query_bands(q_sigs, sizes, q_pad)
+        with span("dstt.facade.query_batch"):
+            with span("dstt.upload.queries"):
+                sizes, q_sigs = self._as_query_batch(queries)
+            if not len(sizes) or not self._tables:
+                return [[] for _ in range(len(sizes))]
+            if q_sigs.shape[1] != self.h:
+                raise ValueError(
+                    "Expecting minhash with length %d, got %d" % (self.h, q_sigs.shape[1])
+                )
+            q_pad = pow2_at_least(q_sigs.shape[0], 8)
+            if self._resolve_scan_method(method, q_pad) == "scan":
+                return self._query_scan(q_sigs, sizes)
+            return self._query_bands(q_sigs, sizes, q_pad)
 
     def _b_keep(self, sizes: np.ndarray, q_pad: int) -> dict:
         """{r: int32[q_pad, parts]}: the band count each (query, partition)
@@ -425,12 +428,15 @@ class TorchMinHashLSHEnsemble:
         (ids, n_match, the scan at any k, k, max_out, keys by row)."""
         flat_sigs, flat_sizes, scan_keys, _ = self._scan_table()
         max_out = min(self.max_results, flat_sigs.shape[0])
-        q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
+        with span("dstt.upload.queries"):
+            q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
 
         def scan(k):
-            ids, _, n_match = lsh_ops.containment_scan(
-                flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, k
-            )
+            count("ensemble.passes")
+            with span("dstt.glue.scan"):
+                ids, _, n_match = lsh_ops.containment_scan(
+                    flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, k
+                )
             return ids, n_match
 
         scan_k = min(max_out, 16)
@@ -439,15 +445,21 @@ class TorchMinHashLSHEnsemble:
     def _scan_finish(self, item) -> list:
         """Fetch and decode one dispatched scan batch, rerunning it at 128
         and then at ``max_results`` while some query's exact match count
-        exceeds k."""
+        exceeds k (each rerun and its fetch under ``dstt.facade.rerun``)."""
         ids, n_match, scan, scan_k, max_out, scan_keys = item
-        ids_host, n_host = ids.cpu().numpy(), n_match.cpu().numpy()
+        ids_host, n_host = _fetch(ids, n_match)
         while scan_k < max_out and int(n_host.max(initial=0)) > scan_k:
-            scan_k = min(max_out, 128 if scan_k < 128 else max_out)
-            ids, n_match = scan(scan_k)
-            ids_host, n_host = ids.cpu().numpy(), n_match.cpu().numpy()
+            with span("dstt.facade.rerun"):
+                scan_k = min(max_out, 128 if scan_k < 128 else max_out)
+                ids, n_match = scan(scan_k)
+                ids_host, n_host = _fetch(ids, n_match)
         self.last_truncated = int(np.maximum(n_host.astype(np.int64) - max_out, 0).sum())
-        return [scan_keys[row[row >= 0]].tolist() for row in ids_host]
+        with span("dstt.facade.decode"):
+            out = [scan_keys[row[row >= 0]].tolist() for row in ids_host]
+        if recording():
+            count("ensemble.matches", int(n_host.sum(dtype=np.int64)))
+            count("facade.answers", sum(map(len, out)))
+        return out
 
     def query_stream(self, batches, depth: int = 4):
         """Pipelined containment scans (the scan path of :meth:`query_batch`)
@@ -457,7 +469,8 @@ class TorchMinHashLSHEnsemble:
         k reruns when it is finished. Needs stored set sizes."""
 
         def dispatch(batch):
-            sizes, q_sigs = self._as_query_batch(batch)
+            with span("dstt.upload.queries"):
+                sizes, q_sigs = self._as_query_batch(batch)
             if not len(sizes) or not self._tables:
                 return len(sizes)
             if q_sigs.shape[1] != self.h:

@@ -16,8 +16,11 @@ timeline, beside the CUDA activity it enqueues; with no profiler running,
 once. Span names are ``dstt.<layer>.<step>``:
 
 - ``dstt.facade.top_k``, ``dstt.facade.query_batch``: a whole
-  ``TorchMinHashLSH`` call; ``dstt.facade.decode``: the host decode of a
-  batch's results into keys (and scores);
+  ``TorchMinHashLSH`` or ``TorchMinHashLSHEnsemble`` call;
+  ``dstt.facade.decode``: the host decode of a batch's results into keys
+  (and scores); ``dstt.facade.rerun``: a containment scan's pass after its
+  first (a larger k, because some query's match count exceeded the last),
+  with its fetch;
 - ``dstt.facade.bulk_signatures``: a whole ``MinHash.bulk_signatures``
   call; ``dstt.facade.order``: its document normalisation, length sort
   and chunking; ``dstt.facade.scatter``: a chunk's rows put back in input
@@ -31,6 +34,9 @@ once. Span names are ``dstt.<layer>.<step>``:
 - ``dstt.glue.probe``: band fingerprints and bucket probes;
   ``dstt.glue.select``: dedupe, cutoff and compaction of candidates;
   ``dstt.glue.sign``: a sketching chunk's offsets and token widening;
+  ``dstt.glue.scan``: a containment scan pass's enqueue;
+  ``dstt.glue.running_topk``: the tiled running top-k over kernel 4 of a
+  scan past k = 128;
 - ``dstt.kernel.<module>``: a kernel wrapper of
   :mod:`datasketch_tpu_torch.kernels` (the launch's enqueue on a card, the
   plain twin on the CPU).
@@ -39,7 +45,10 @@ Counters (:func:`counters`): ``upload.fetch_bytes``, the bytes of the
 result tensors a ``TorchMinHashLSH`` batch copies back;
 ``facade.fetched_slots``, the id slots among them (a threshold batch's are
 its answers alone: it is compacted on the device first);
-``facade.answers``, the entries the host decode returned.
+``facade.answers``, the entries the host decode returned;
+``ensemble.passes``, the containment scan passes (the first and each
+rerun); ``ensemble.matches``, the match counts of a containment batch's
+queries, summed.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["trace", "time_op", "device_sync", "cuda_time_ms", "span", "count",
-           "counters", "reset_counters"]
+           "recording", "counters", "reset_counters"]
 
 _OFF = contextlib.nullcontext()
 _counters: dict = {}
@@ -73,6 +82,12 @@ def count(name: str, n: int = 1) -> None:
     records; a no-op otherwise."""
     if _autograd_profiler._is_profiler_enabled:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records (spans and counters are
+    on): a caller checks it before work done only to feed a counter."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def counters() -> dict:

@@ -188,3 +188,151 @@ def test_counters_are_a_copy_and_reset():
     assert profiling.counters() == {"x.y": 4}
     profiling.reset_counters()
     assert profiling.counters() == {}
+
+
+# ------------------------------------------------ the ensemble's scan path
+
+ENSEMBLE_SCAN = {"dstt.facade.query_batch", "dstt.upload.queries", "dstt.glue.scan",
+                 "dstt.kernel.lsh_scan", "dstt.upload.fetch", "dstt.facade.rerun",
+                 "dstt.glue.running_topk", "dstt.kernel.score", "dstt.facade.decode"}
+
+
+@pytest.fixture(scope="module")
+def ensemble():
+    """300 sets of uniform ids and 150 copies of one core set, with
+    ``max_results`` 140: a batch that asks the core reruns twice (k 16 ->
+    128 -> 140) and has 10 matches cut; one of subset queries alone stops
+    at k 16."""
+    from datasketch_tpu_torch import TorchMinHashLSHEnsemble
+
+    rng = np.random.RandomState(9)
+    core = rng.choice(4000, 14, replace=False)
+    docs = [rng.randint(0, 4000, rng.randint(8, 60)) for _ in range(300)] + [core] * 150
+    ix = TorchMinHashLSHEnsemble(threshold=0.8, num_perm=P, num_part=4, max_results=140,
+                                 device="cpu")
+    ix.index_tokens(range(len(docs)), docs)
+    subsets = [np.unique(d)[: max(1, len(np.unique(d)) // 2)] for d in docs[:12]]
+
+    def batch(queries):
+        sigs = MinHash.bulk_signatures(queries, num_perm=P, hashfunc="device", device="cpu",
+                                       out="host")
+        return sigs, np.array([len(np.unique(q)) for q in queries])
+
+    return ix, batch(subsets + [core]), batch(subsets)
+
+
+def _scan_calls(monkeypatch):
+    """Count the containment scans a batch runs, and their match counts."""
+    from datasketch_tpu_torch.ops import lsh_ops
+
+    real, runs = lsh_ops.containment_scan, []
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        runs.append(out)
+        return out
+
+    monkeypatch.setattr(lsh_ops, "containment_scan", counted)
+    return runs
+
+
+@pytest.mark.parametrize("reruns", [2, 0])
+def test_ensemble_scan_records_its_spans_inside_the_facade_call(ensemble, reruns, monkeypatch):
+    ix, rerun_batch, first_pass = ensemble
+    runs = _scan_calls(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ix.query_batch(rerun_batch if reruns else first_pass, method="scan")
+    spans = _spans(prof)
+    names = [n for n, _, _ in spans]
+    assert len(runs) == reruns + 1
+    if reruns:
+        assert set(names) == ENSEMBLE_SCAN
+    else:
+        assert set(names) == ENSEMBLE_SCAN - {"dstt.facade.rerun", "dstt.glue.running_topk",
+                                              "dstt.kernel.score"}
+    assert names.count("dstt.facade.query_batch") == 1
+    assert names.count("dstt.glue.scan") == names.count("dstt.upload.fetch") == reruns + 1
+    assert names.count("dstt.facade.rerun") == reruns
+    for name in ENSEMBLE_SCAN - {"dstt.facade.query_batch"}:
+        if name in names:
+            assert _inside(spans, name, "dstt.facade.query_batch"), name
+    nesting = [("dstt.kernel.lsh_scan", "dstt.glue.scan")]
+    if reruns:
+        nesting += [("dstt.glue.running_topk", "dstt.glue.scan"),
+                    ("dstt.kernel.score", "dstt.glue.running_topk"),
+                    ("dstt.glue.running_topk", "dstt.facade.rerun")]
+    for child, parent in nesting:
+        assert _inside(spans, child, parent), (child, parent)
+    assert not _inside(spans, "dstt.facade.decode", "dstt.facade.rerun")
+
+
+def test_ensemble_counters_equal_the_passes_matches_and_bytes(ensemble, monkeypatch):
+    from datasketch_tpu_torch.models import torch_ensemble
+
+    ix, rerun_batch, _ = ensemble
+    runs = _scan_calls(monkeypatch)
+    copied = []
+    real = torch_lsh._host
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            copied.append(x)
+        return real(x)
+
+    monkeypatch.setattr(torch_lsh, "_host", host)
+    assert torch_ensemble._fetch is torch_lsh._fetch
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = ix.query_batch(rerun_batch, method="scan")
+    got = profiling.counters()
+    profiling.reset_counters()
+    n_match = runs[-1][2].long()
+    assert got["ensemble.passes"] == len(runs) == 3
+    assert [r[0].shape[1] for r in runs] == [16, 128, 140]
+    assert got["ensemble.matches"] == int(n_match.sum()) > 150
+    assert ix.last_truncated == 10
+    assert got["facade.answers"] == sum(map(len, out)) == int(n_match.clamp_max(140).sum())
+    assert got["upload.fetch_bytes"] == sum(x.numel() * x.element_size() for x in copied)
+    assert len(copied) == 6  # ids and match counts of each pass
+
+
+def test_ensemble_spans_off_record_nothing_and_cost_under_10us_a_call(ensemble, monkeypatch):
+    import timeit
+
+    from datasketch_tpu_torch.kernels import lsh_scan
+    from datasketch_tpu_torch.models import torch_ensemble
+
+    ix, rerun_batch, _ = ensemble
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: made.append(name))
+    calls = {"span": 0, "count": 0, "recording": 0}
+
+    def counting(mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*args):
+            calls[name] += 1
+            return real(*args)
+
+        monkeypatch.setattr(mod, name, wrapper)
+
+    for mod, names in ((torch_ensemble, ("span", "count", "recording")),
+                       (torch_lsh, ("span", "count")), (lsh_scan, ("span",))):
+        for name in names:
+            counting(mod, name)
+    before = profiling.counters()
+    ix.query_batch(rerun_batch, method="scan")
+    assert made == [] and profiling.counters() == before
+    assert calls["recording"] == 1 and calls["span"] > 0
+
+    def off_span():
+        with profiling.span("dstt.facade.rerun"):
+            pass
+
+    reps = 20000
+    cost = {"span": timeit.timeit(off_span, number=reps) / reps,
+            "count": timeit.timeit(lambda: profiling.count("ensemble.passes"),
+                                   number=reps) / reps,
+            "recording": timeit.timeit(profiling.recording, number=reps) / reps}
+    assert sum(calls[k] * cost[k] for k in calls) < 10e-6, (calls, cost)
