@@ -242,6 +242,8 @@ ENS_QUERIES = 1024
 ENS_PLAIN_QUERIES = 64  # scan answers held against the plain version
 ENS_PARITY_SETS = 8192
 ENS_THRESHOLD = 0.8
+ENS_CELL_PERM = 256  # the ensemble-4m cell's num_perm and answer cap, for kernel 2s's
+ENS_CELL_CAP = 2048  # emit variant
 W_ROWS = 1 << 20
 W_DIM = 10000
 W_SAMPLES = 128
@@ -355,6 +357,13 @@ KERNELS = [
         "replaces": "datasketch_tpu/ops/pallas_kernels.py:682",
     },
     {
+        "name": "containment_hits",
+        "module": "lsh_scan",
+        "counter": "launches_hits",
+        "source": "datasketch_tpu_torch/csrc/lsh_scan.cu",
+        "replaces": "none: the JAX package reruns its top-k scan past k 128",
+    },
+    {
         "name": "rerank",
         "module": "rerank",
         "source": "datasketch_tpu_torch/csrc/rerank.cu",
@@ -393,7 +402,7 @@ KERNELS = [
     },
 ]
 LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix", "compact_rows")
-ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
+ENSEMBLE_PATH = ("minhash_sign", "containment_hits", "compact_rows")
 WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
 BBIT_PATH = ("bbit_scores",)
 TEXT_PATH = ("minhash_sign", "topk_scan", "rerank")
@@ -598,6 +607,7 @@ class Smoke:
         # kernel 2 in its plain, mask and sizes modes
         data = self.scan_data(**(scan or {}))
         self.phase_kernels_scan(data, **(scan_edges or {}))
+        self.phase_kernels_hits(data["n"], data["nq"])
 
         self.phase_kernels_rerank(data, **(rerank_edges or {}))
         self.phase_kernels_compact(data)
@@ -893,6 +903,74 @@ class Smoke:
             args = (d, xs, qq, qs, k, 0.8)
             self.compare("containment_scan", case + " cutoff 0.8 tie block",
                          k2.containment_topk(*args), k2.containment_topk_plain(*args))
+
+    def phase_kernels_hits(self, n: int, nq: int, p: int = ENS_CELL_PERM,
+                           cap: int = ENS_CELL_CAP) -> None:
+        """Kernel 2s's emit variant (``containment_hits``, the ensemble
+        scan's pass) against its plain twin at cutoff 0.8 on ``n`` random
+        rows of ``p`` slots with two planted blocks of near-copies, A (a
+        quarter of the rows) and B (``cap // 2`` rows), and ``nq`` queries:
+        A (past the cap), B (17 to ``cap`` matches), A at size 0, and
+        near-copies of random rows (few or no matches). The cap is
+        ``min(cap, n // 8)``. Timed at these shapes (the ensemble-4m
+        cell's P, Q and cap)."""
+        torch = self.torch
+        k2 = self.kmod("containment_hits")
+        dev = self.device
+        g = torch.Generator(device=dev).manual_seed(31)
+        cap = min(cap, n // 8)
+        na, nb = n // 4, cap // 2
+        db = self.rand_sigs(n, p, 32)
+        sizes = self.lognormal_sizes(n, 33)
+        a, b = self.rand_sigs(2, p, 34)
+        db[:na] = self.near_copies(a.expand(na, p), 0.97, 35)
+        db[na: na + nb] = self.near_copies(b.expand(nb, p), 0.97, 36)
+        sizes[: na + nb] = 120
+        sizes[::17] = 0
+        qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
+        q = self.near_copies(db[qidx], 0.7, 37)
+        q_sizes = sizes[qidx].clamp_min(1)
+        q[:3] = torch.stack([a, b, a])
+        q_sizes[:3] = torch.tensor([120, 120, 0], dtype=torch.int32, device=dev)
+        args = (db, sizes, q, q_sizes, ENS_THRESHOLD, cap)
+        self.compare_hits("P %d N %d Q %d cap %d cutoff %.1f" % (p, n, nq, cap, ENS_THRESHOLD),
+                          args, k2.containment_hits(*args), k2.containment_hits_plain(*args))
+        rec = self.record["containment_hits"]
+        rec["ms"] = self.time_ms(lambda: k2.containment_hits(*args))
+        rec["plain_ms"] = self.time_ms(lambda: k2.containment_hits_plain(*args), iters=1,
+                                       warmup=0)
+        # as kernel 2s's top-k, with one int64 key a written hit
+        _, n_match = k2.containment_hits_plain(*args)
+        written = int(n_match.to(torch.int64).clamp_max(cap).sum())
+        self.bound("containment_hits", 4 * (n + nq) * (p + 1) + 8 * written + 4 * nq,
+                   int_ops=SLOT_INT_OPS * nq * n * p, f32_ops=6.0 * nq * n)
+
+    def compare_hits(self, case: str, args, got, want) -> None:
+        """The emit variant's rows against the twin's: equal exact counts;
+        a row with at most ``cap`` hits holds the same keys in some order,
+        one past it ``cap`` distinct keys among its hits. The case must
+        hold rows of at most 16 hits, of 17 to ``cap`` and past ``cap``."""
+        torch = self.torch
+        db, sizes, q, q_sizes, cutoff, cap = args
+        (keys, n), (plain, plain_n) = got, want
+        check(torch.equal(n, plain_n), "containment_hits/%s: counts differ" % case)
+        check(bool((n <= 16).any() and ((n > 16) & (n <= cap)).any() and (n > cap).any()),
+              "containment_hits/%s: the case lacks a count range" % case)
+        keys = torch.sort(keys, dim=1, descending=True).values
+        plain = torch.sort(plain, dim=1, descending=True).values
+        whole = n <= cap
+        check(torch.equal(keys[whole], plain[whole]),
+              "containment_hits/%s: rows of at most cap hits differ" % case)
+        over = torch.nonzero(~whole).flatten()
+        full, _ = self.kmod("containment_hits").containment_hits_plain(
+            db, sizes, q[over], q_sizes[over], cutoff, int(n.max()))
+        for i, row in enumerate(over.tolist()):
+            mine = keys[row]
+            check(bool((mine >= 0).all()) and mine.unique().numel() == cap
+                  and bool(torch.isin(mine, full[i]).all()),
+                  "containment_hits/%s: row %d past the cap holds other keys" % (case, row))
+        log("  %-13s %-34s exact (%d rows past the cap)" % ("containment_hits", case,
+                                                             over.numel()))
 
     def phase_kernels_cws(self, n_rows: int = W_ROWS, dense_rows: int = W_DENSE_ROWS,
                           edge_rows: int = 257) -> None:
@@ -1567,8 +1645,8 @@ class Smoke:
     def phase_ensemble(self, docs, queries, src, escalates: bool = True):
         """The containment main path through the public facade: build by
         ``index_tokens``, then the query batch by scan, bands and auto.
-        ``escalates``: some query matches more than 16 sets, so the scan
-        reruns past its first k (true of the full-size corpus, whose
+        ``escalates``: some query matches more than 16 sets, so some
+        scan answer is longer than 16 (true of the full-size corpus, whose
         queries' match counts grow with the number of sets)."""
         torch = self.torch
         from datasketch_tpu_torch import MinHash, TorchMinHashLSHEnsemble

@@ -58,6 +58,21 @@
 //   kernel merges the splits' lists per query by rank; both merges are
 //   exact in the total order, so the result does not depend on the split
 //   count or on the order in which threads append.
+//
+// Emit variant (template argument kEmit, sizes mode only): no carry and no
+// split merge. A tile's hits go to the per-query candidate buffer as
+// (count << 6 | tile row); where any came, one warp per query reserves a
+// slot range of the query's output row with ONE atomicAdd on its hit count
+// and writes each hit's key bits(c) << 31 | (2**31 - 1 - row) into the
+// slots below the row's capacity. Once a reservation reaches the capacity
+// the block marks the query full and only counts its later hits in
+// registers (a query of common ids can match millions of rows, which
+// would otherwise each cost a shared atomic and a flush in the few blocks
+// that hold it), added to the hit count at the end. So the count ends
+// exact, and a row whose count is at most its capacity holds all its
+// hits, in no order. The block keeps no top-k, so its shared memory is
+// the tiles and one int a candidate: 108,800 bytes at P 256, where the
+// top-k mode's 121,216 at k 16 leave one block an SM and this fits two.
 #include <climits>
 
 #include "common.cuh"
@@ -151,6 +166,137 @@ __device__ void merge_candidates(int* cc, int* ci, const int* bc,
   __syncwarp();
 }
 
+// Emit variant: a candidate is its count above the tile row's kRowBits.
+constexpr int kRowBits = 6;
+static_assert(kRB == 1 << kRowBits, "a tile row fills the candidate's low bits");
+
+// Shared memory of an emit block, in ints.
+__host__ __device__ inline size_t emit_smem_ints(int p) {
+  return static_cast<size_t>(kQB + kRB) * row_stride(p)  // q and db tiles
+         + kQB * kRB                                     // candidates
+         + 3 * kQB                                       // n_buf, full, hits
+         + kRB + kQB;                                    // row sizes, query sizes
+}
+
+// The emit variant's body: every hit of queries [q0, q0 + kQB) in this
+// block's split, written as keys into out_keys[query][slot] for the slots
+// below `cap` that the query's count reserves.
+__device__ __forceinline__ void emit_hits(const int* __restrict__ db,
+                                          const int* __restrict__ q,
+                                          const int* __restrict__ sizes,
+                                          const int* __restrict__ q_sizes, int nq,
+                                          long long n, int p, float cutoff, int cap,
+                                          long long rows_per_split,
+                                          int* __restrict__ hit_count,
+                                          long long* __restrict__ out_keys) {
+  extern __shared__ int4 smem4[];
+  int* smem = reinterpret_cast<int*>(smem4);
+  const int stride = row_stride(p);
+  int* q_s = smem;
+  int* db_s = q_s + kQB * stride;
+  int* buf = db_s + kRB * stride;
+  int* n_buf = buf + kQB * kRB;
+  int* full = n_buf + kQB;                             // no free slot left in the row
+  int* hits_s = full + kQB;                            // hits of full queries
+  int* x_s = hits_s + kQB;                             // the tile's row sizes
+  float* qf_s = reinterpret_cast<float*>(x_s + kRB);   // f32 query sizes, >= 1
+  const bool vec = (p & 3) == 0 && (reinterpret_cast<uintptr_t>(db) & 15) == 0;
+  const float inv_p = 1.0f / static_cast<float>(p);
+
+  const int q0 = blockIdx.x * kQB;
+  const long long r_begin = static_cast<long long>(blockIdx.y) * rows_per_split;
+  const long long r_end = min(n, r_begin + rows_per_split);
+  const int n_tiles = r_end > r_begin
+                          ? static_cast<int>((r_end - r_begin + kRB - 1) / kRB) : 0;
+  stage_rows(q_s, q, q0, kQB, nq, p, stride, 0);
+  for (int i = threadIdx.x; i < kRB * (stride - p); i += blockDim.x) {
+    const int r = i / (stride - p);
+    db_s[r * stride + p + (i - r * (stride - p))] = 1;
+  }
+  for (int i = threadIdx.x; i < kQB; i += blockDim.x) {
+    n_buf[i] = 0;
+    full[i] = 0;
+    hits_s[i] = 0;
+    qf_s[i] = q0 + i < nq ? static_cast<float>(max(q_sizes[q0 + i], 1)) : 1.0f;
+  }
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int r0, lq;  // rows r0 and r0 + 4, queries lq + 8 j
+  tile_coords(r0, lq);
+  int hits[kQueriesPT];  // this thread's hits of full queries
+#pragma unroll
+  for (int j = 0; j < kQueriesPT; ++j) hits[j] = 0;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long row0 = r_begin + static_cast<long long>(t) * kRB;
+    // every thread is past its reads of tile t - 1 (the barriers below)
+    issue_tile(db_s, x_s, db, sizes, row0, r_end, p, stride, vec);
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; the previous tile's flush is done
+    int counts[kRowsPT][kQueriesPT];
+    block_counts(q_s, db_s, stride, r0, lq, counts);
+    int appended = 0;
+#pragma unroll
+    for (int h = 0; h < kRowsPT; ++h) {
+      const int rr = r0 + 4 * h;
+      const int x = x_s[rr];
+      if (row0 + rr >= r_end || x <= 0) continue;
+      const float xf = static_cast<float>(x);
+#pragma unroll
+      for (int j = 0; j < kQueriesPT; ++j) {
+        const int qi = lq + 8 * j;
+        if (q0 + qi < nq && containment(counts[h][j], inv_p, xf, qf_s[qi]) >= cutoff) {
+          if (full[qi]) {
+            ++hits[j];
+          } else {
+            const int pos = atomicAdd(&n_buf[qi], 1);
+            buf[qi * kRB + pos] = counts[h][j] << kRowBits | rr;
+            appended = 1;
+          }
+        }
+      }
+    }
+    // flush only if any came: per query one reservation, then the keys
+    if (__syncthreads_or(appended)) {
+      for (int qi = warp; qi < kQB; qi += kThreads / 32) {
+        const int nb = n_buf[qi];
+        if (nb == 0) continue;  // the same for the whole warp
+        int base = 0;
+        if (lane == 0) base = atomicAdd(&hit_count[q0 + qi], nb);
+        base = __shfl_sync(0xffffffffu, base, 0);
+        long long* dst = out_keys + static_cast<long long>(q0 + qi) * cap;
+        const float qf = qf_s[qi];
+        for (int e = lane; e < nb && e < cap - base; e += 32) {
+          const int v = buf[qi * kRB + e];
+          const int rr = v & (kRB - 1);
+          const float c = containment(v >> kRowBits, inv_p, static_cast<float>(x_s[rr]), qf);
+          dst[base + e] = static_cast<long long>(__float_as_int(c)) << 31 |
+                          (INT_MAX - static_cast<int>(row0 + rr));
+        }
+        __syncwarp();
+        if (lane == 0) {
+          n_buf[qi] = 0;
+          if (nb >= cap - base) full[qi] = 1;
+        }
+      }
+      __syncthreads();  // the flush read x_s, which the next tile's copy overwrites
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kQueriesPT; ++j) {
+    if (hits[j]) atomicAdd(&hits_s[lq + 8 * j], hits[j]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kQB; i += blockDim.x) {
+    if (q0 + i < nq && hits_s[i]) atomicAdd(&hit_count[q0 + i], hits_s[i]);
+  }
+}
+
+// kEmit false: the top-k scan of every mode, as described at the top.
+// kEmit true: the emit variant (sizes mode; `k` is each output row's
+// capacity, `out_keys` the [nq, k] rows; part_cnt, part_id, alive,
+// n_valid and min_count unused).
+template <bool kEmit>
 __global__ void __launch_bounds__(kThreads)
 topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
                  const unsigned char* __restrict__ alive,
@@ -158,7 +304,12 @@ topk_scan_kernel(const int* __restrict__ db, const int* __restrict__ q,
                  int nq, long long n, int p, long long n_valid, int min_count,
                  float cutoff, int k, long long rows_per_split,
                  int* __restrict__ part_cnt, int* __restrict__ part_id,
-                 int* __restrict__ hit_count) {
+                 int* __restrict__ hit_count, long long* __restrict__ out_keys) {
+  if constexpr (kEmit) {
+    emit_hits(db, q, sizes, q_sizes, nq, n, p, cutoff, k, rows_per_split, hit_count,
+              out_keys);
+    return;
+  }
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   const int stride = row_stride(p);
@@ -321,10 +472,12 @@ __global__ void topk_merge_kernel(const int* __restrict__ part_cnt,
 
 }  // namespace
 
-// Make the scan kernel ready for its dynamic shared memory at (p, k);
-// `*fits` is false where that is more than a block may have.
+// Make the scan kernel (kEmit: its emit variant) ready for its dynamic
+// shared memory at (p, k); `*fits` is false where that is more than a
+// block may have.
+template <bool kEmit>
 static cudaError_t prepare_scan(int p, int k, size_t* smem, bool* fits) {
-  *smem = sizeof(int) * scan_smem_ints(p, k);
+  *smem = sizeof(int) * (kEmit ? emit_smem_ints(p) : scan_smem_ints(p, k));
   int dev = 0, most = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -332,24 +485,35 @@ static cudaError_t prepare_scan(int p, int k, size_t* smem, bool* fits) {
   }
   *fits = err == cudaSuccess && *smem <= static_cast<size_t>(most);
   if (err != cudaSuccess || !*fits) return err;
-  return cudaFuncSetAttribute(topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(topk_scan_kernel<kEmit>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
+}
+
+template <bool kEmit>
+static int blocks_per_sm(int p, int k, void* out) {
+  size_t smem = 0;
+  bool fits = false;
+  cudaError_t err = prepare_scan<kEmit>(p, k, &smem, &fits);
+  int blocks = 0;
+  if (err == cudaSuccess && fits) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_scan_kernel<kEmit>,
+                                                        kThreads, smem);
+  }
+  *static_cast<int*>(out) = blocks;
+  return static_cast<int>(err);
 }
 
 // Resident blocks of the scan kernel per SM at (p, k), 0 where a block
 // does not fit, written to `*out`: the wrapper sizes its grid in whole
 // waves of them.
 extern "C" int ds_topk_scan_blocks_per_sm(int p, int k, void* out) {
-  size_t smem = 0;
-  bool fits = false;
-  cudaError_t err = prepare_scan(p, k, &smem, &fits);
-  int blocks = 0;
-  if (err == cudaSuccess && fits) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topk_scan_kernel,
-                                                        kThreads, smem);
-  }
-  *static_cast<int*>(out) = blocks;
-  return static_cast<int>(err);
+  return blocks_per_sm<false>(p, k, out);
+}
+
+// The same for the emit variant at p.
+extern "C" int ds_containment_hits_blocks_per_sm(int p, void* out) {
+  return blocks_per_sm<true>(p, 0, out);
 }
 
 // `alive`, `sizes` and `q_sizes` may be null; `sizes` and `q_sizes` are
@@ -373,18 +537,50 @@ extern "C" int ds_topk_scan(const void* db, const void* q, const void* alive,
   if (nq > 0 && n_split > 0) {
     size_t smem = 0;
     bool fits = false;
-    const cudaError_t err = prepare_scan(p, k, &smem, &fits);
+    const cudaError_t err = prepare_scan<false>(p, k, &smem, &fits);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (!fits) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>((nq + kQB - 1) / kQB),
                     static_cast<unsigned>(n_split));
-    topk_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    topk_scan_kernel<false><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(db), static_cast<const int*>(q),
         static_cast<const unsigned char*>(alive),
         static_cast<const int*>(sizes), static_cast<const int*>(q_sizes), nq,
         n, p, n_valid, min_count, cutoff, k, rows_per_split,
         static_cast<int*>(part_cnt), static_cast<int*>(part_id),
-        static_cast<int*>(hit_count));
+        static_cast<int*>(hit_count), nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The emit variant: every hit of each query (containment c >= cutoff) as
+// a key in its row of `out_keys` (int64[nq, cap], filled with -1 by the
+// caller), the first `cap` the count reserves; `hit_count` (int32[nq],
+// zeroed by the caller) ends as the exact hit count. Splits as
+// ds_topk_scan's; rows are numbered below 2**31.
+extern "C" int ds_containment_hits(const void* db, const void* q, const void* sizes,
+                                   const void* q_sizes, int nq, long long n, int p,
+                                   float cutoff, int cap, int n_split,
+                                   long long rows_per_split, void* out_keys,
+                                   void* hit_count, void* stream) {
+  if (sizes == nullptr || q_sizes == nullptr || cap < 1 || n > INT_MAX ||
+      rows_per_split < kRB || rows_per_split % kRB != 0 ||
+      static_cast<long long>(n_split) * rows_per_split < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nq > 0 && n_split > 0) {
+    size_t smem = 0;
+    bool fits = false;
+    const cudaError_t err = prepare_scan<true>(p, 0, &smem, &fits);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>((nq + kQB - 1) / kQB),
+                    static_cast<unsigned>(n_split));
+    topk_scan_kernel<true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(db), static_cast<const int*>(q), nullptr,
+        static_cast<const int*>(sizes), static_cast<const int*>(q_sizes), nq, n, p, n, 0,
+        cutoff, cap, rows_per_split, nullptr, nullptr, static_cast<int*>(hit_count),
+        static_cast<long long*>(out_keys));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,11 @@
 CUDA source: ``datasketch_tpu_torch/csrc/lsh_scan.cu`` (replaces
 ``datasketch_tpu/ops/pallas_kernels.py::_topk_scan_kernel`` in its plain
 and alive-mask modes, :func:`topk_scan`, and in its sizes (containment)
-mode, :func:`containment_topk`). CPU tensors take the plain PyTorch
-version; CUDA tensors launch the kernel or raise. ``launches`` counts the
-plain and mask modes, ``launches_sizes`` the sizes mode.
+mode, :func:`containment_topk`; the sizes mode's emit variant, which keeps
+no top-k and writes every hit, :func:`containment_hits`). CPU tensors take
+the plain PyTorch version; CUDA tensors launch the kernel or raise.
+``launches`` counts the plain and mask modes, ``launches_sizes`` the sizes
+mode's top-k, ``launches_hits`` its emit variant.
 
 :func:`running_topk` is the tiled running top-k that
 ``ops.lsh_ops.topk_scan`` / ``containment_scan`` run over kernel 4 for
@@ -29,15 +31,19 @@ __all__ = [
     "topk_scan_plain",
     "containment_topk",
     "containment_topk_plain",
+    "containment_hits",
+    "containment_hits_plain",
     "running_topk",
     "min_hit_count",
     "MAX_K",
     "launches",
     "launches_sizes",
+    "launches_hits",
 ]
 
 launches = 0
 launches_sizes = 0
+launches_hits = 0
 
 MAX_K = 128  # the kernel keeps at most this many entries per query
 _ID_MASK = (1 << 31) - 1
@@ -123,6 +129,84 @@ def containment_topk_plain(db, sizes, q, q_sizes, k: int, cutoff: float):
                          sizes=sizes, q_sizes=q_sizes)
 
 
+def containment_hits_plain(db, sizes, q, q_sizes, cutoff: float, cap: int,
+                           tile: int = _PLAIN_TILE):
+    """Plain PyTorch twin of the emit variant (same arguments, same
+    result; a row past its capacity keeps its first ``cap`` hits in row
+    order, one of the subsets the kernel may keep)."""
+    n, nq, dev = db.shape[0], q.shape[0], q.device
+    cut = float(np.float32(cutoff))
+    qf = q_sizes.to(torch.float32).clamp_min(1.0)[:, None]
+    keys = torch.full((nq, cap), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(nq, dtype=torch.int64, device=dev)
+    row_base = torch.arange(nq, device=dev)[:, None] * cap
+    for r0 in range(0, n, tile):
+        r1 = min(n, r0 + tile)
+        j = score_matrix_plain(q, db[r0:r1])
+        x = sizes[r0:r1]
+        c = (j * (x.to(torch.float32)[None, :] + qf)) / ((1.0 + j) * qf)
+        hit = (x > 0)[None, :] & (c >= cut)
+        slot = cnt[:, None] + hit.cumsum(dim=1) - 1
+        put = hit & (slot < cap)
+        ids = torch.arange(r0, r1, device=dev)
+        key = (c.view(torch.int32).to(torch.int64) << 31) | (_ID_MASK - ids)[None, :]
+        keys.view(-1)[(row_base + slot)[put]] = key[put]
+        cnt += hit.sum(dim=1)
+    return keys, cnt.to(torch.int32)
+
+
+def containment_hits(db, sizes, q, q_sizes, cutoff: float, cap: int):
+    """Every hit of every query by estimated containment, and exact hit
+    counts: the emit variant of kernel 2's sizes mode.
+
+    The hit test and estimate are :func:`containment_topk`'s. A hit of
+    stored row r at containment c is the int64 key
+    ``bits(c) << 31 | (2**31 - 1 - r)``: keys order like (c desc, r asc)
+    and are unique.
+
+    Args:
+        db: int32[N, P] stored signatures, N < 2**31; sizes: int32[N] set
+            sizes, <= 0 marks a padding row (never a hit).
+        q: int32[Q, P] queries; q_sizes: int32[Q] query set sizes.
+        cutoff: only rows with c >= cutoff (f32 compare) are hits.
+        cap: slots of each query's output row.
+
+    Returns:
+        keys int64[Q, cap], -1 = empty: a query with at most ``cap`` hits
+        holds all of them, in no order; one with more holds ``cap`` of
+        them. counts int32[Q]: the exact hits of each query.
+    """
+    with span("dstt.kernel.lsh_scan"):
+        if cap < 1:
+            raise ValueError("containment_hits: cap must be at least 1, got %d" % cap)
+        if q.device.type == "cpu":
+            return containment_hits_plain(db, sizes, q, q_sizes, cutoff, cap)
+        build.require_cuda("containment_hits", db, sizes, q, q_sizes)
+        _check_sigs("containment_hits", db, q)
+        _check_sizes("containment_hits", db, sizes, q, q_sizes)
+        n, p = db.shape
+        if n > _ID_MASK:
+            raise ValueError("containment_hits: rows are numbered below 2**31")
+        nq, dev = q.shape[0], q.device
+        keys = torch.full((nq, cap), -1, dtype=torch.int64, device=dev)
+        cnt = torch.zeros(nq, dtype=torch.int32, device=dev)
+        if nq == 0:
+            return keys, cnt
+        global launches_hits
+        launches_hits += 1
+        lib = build.library()
+        splits, rows = tiling.grid(
+            nq, n, build.num_sms(q),
+            tiling.blocks_per_sm(lib, "ds_containment_hits_blocks_per_sm", dev, p))
+        err = lib.ds_containment_hits(
+            db.data_ptr(), q.data_ptr(), sizes.data_ptr(), q_sizes.data_ptr(), nq, n, p,
+            float(np.float32(cutoff)), cap, splits, rows, keys.data_ptr(), cnt.data_ptr(),
+            build.stream_ptr(q),
+        )
+        build.check(err, "ds_containment_hits")
+        return keys, cnt
+
+
 def topk_scan(db, q, k: int, n_valid: int, alive=None, cutoff: float = 0.0):
     """Top-k (ids, scores) and hit counts of every query over the table.
 
@@ -177,10 +261,7 @@ def containment_topk(db, sizes, q, q_sizes, k: int, cutoff: float):
             return containment_topk_plain(db, sizes, q, q_sizes, k, cutoff)
         build.require_cuda("containment_topk", db, sizes, q, q_sizes)
         _check_sigs("containment_topk", db, q)
-        if sizes.dtype != torch.int32 or sizes.shape != (db.shape[0],):
-            raise ValueError("containment_topk: sizes must be int32[N]")
-        if q_sizes.dtype != torch.int32 or q_sizes.shape != (q.shape[0],):
-            raise ValueError("containment_topk: q_sizes must be int32[Q]")
+        _check_sizes("containment_topk", db, sizes, q, q_sizes)
         global launches_sizes
         launches_sizes += 1
         return _launch(db, q, k, db.shape[0], None, 0, sizes, q_sizes,
@@ -196,6 +277,13 @@ def _check_sigs(name: str, db, q) -> None:
     if (db.dim() != 2 or q.dim() != 2 or q.shape[1] != db.shape[1]
             or db.dtype != torch.int32 or q.dtype != torch.int32):
         raise ValueError("%s: want int32 db [N, P] and q [Q, P]" % name)
+
+
+def _check_sizes(name: str, db, sizes, q, q_sizes) -> None:
+    if sizes.dtype != torch.int32 or sizes.shape != (db.shape[0],):
+        raise ValueError("%s: sizes must be int32[N]" % name)
+    if q_sizes.dtype != torch.int32 or q_sizes.shape != (q.shape[0],):
+        raise ValueError("%s: q_sizes must be int32[Q]" % name)
 
 
 def _launch(db, q, k, n_valid, alive, min_count, sizes, q_sizes, cutoff):

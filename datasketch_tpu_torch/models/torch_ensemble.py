@@ -5,8 +5,10 @@ the same DP size partitioner and per-x/q (b, r) tables
 (:mod:`datasketch_tpu_torch.models.lshensemble`), and per unique r one
 stacked ``[parts, b, N_pad]`` band table for all partitions, probed in one
 pass with per-(query, partition) band counts. ``method="scan"`` scores the
-containment estimate of every stored set instead (kernel 2's sizes mode,
-kernel 4 past k = 128). Answers equal the JAX package's: band results as
+containment estimate of every stored set instead (kernel 2's sizes mode in
+its emit variant: one pass writes every query's hits and exact match
+count; only queries past ``max_results`` are scanned again). Answers equal
+the JAX package's: band results as
 sets, scan results as ordered lists, ``last_truncated`` included, and
 checkpoints load in either package.
 
@@ -34,7 +36,7 @@ from datasketch_tpu_torch.models.minhash import MinHash, pow2_at_least
 from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix, _fetch
 from datasketch_tpu_torch.ops import lsh_ops
 from datasketch_tpu_torch.utils.pipeline import stream_batches
-from datasketch_tpu_torch.utils.profiling import count, recording, span
+from datasketch_tpu_torch.utils.profiling import count, device_sync, recording, span
 
 __all__ = ["TorchMinHashLSHEnsemble"]
 
@@ -345,9 +347,9 @@ class TorchMinHashLSHEnsemble:
         the first b bands of the (b, r) each query's x/q ratio picks per
         partition; keys in no particular order), ``'scan'`` (the
         containment estimate ``c = J*(x+q)/((1+J)*q)`` of every stored set,
-        keys with c >= threshold in (c desc, row asc) order, staged k = 16
-        -> 128 -> ``max_results``), or ``'auto'`` (scan when the stacked
-        table is no larger than the band path's gather volume).
+        keys with c >= threshold in (c desc, row asc) order, at most
+        ``max_results``), or ``'auto'`` (scan when the stacked table is no
+        larger than the band path's gather volume).
         """
         if method not in _METHODS:
             raise ValueError("method must be 'auto', 'bands' or 'scan'")
@@ -419,54 +421,67 @@ class TorchMinHashLSHEnsemble:
         return [list(r) for r in results]
 
     def _query_scan(self, q_sigs: torch.Tensor, sizes: np.ndarray) -> list:
-        """Containment scan of the compact table: one dispatch, one fetch
-        (and one more per rerun)."""
+        """Containment scan of the compact table: one dispatch, then the
+        fetch of the match counts and of the answers (and a rescan of the
+        queries past the cap between them)."""
         return self._scan_finish(self._scan_dispatch(q_sigs, sizes))
 
     def _scan_dispatch(self, q_sigs: torch.Tensor, sizes: np.ndarray):
-        """Enqueue a containment scan at k = 16 on the card; returns
-        (ids, n_match, the scan at any k, k, max_out, keys by row)."""
-        flat_sigs, flat_sizes, scan_keys, _ = self._scan_table()
+        """Enqueue the first pass on the card: every query's hits, sorted,
+        in a row of ``max_out`` slots, and its exact match count. Returns
+        what :meth:`_scan_finish` takes: the counts, the cap, and the hits
+        and queries behind a closure, so that :meth:`query_stream` copies
+        back only the counts and the rescan and compaction stay on the
+        card."""
+        flat_sigs, flat_sizes, _, _ = self._scan_table()
         max_out = min(self.max_results, flat_sigs.shape[0])
         with span("dstt.upload.queries"):
             q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
-
-        def scan(k):
-            count("ensemble.passes")
-            with span("dstt.glue.scan"):
-                ids, _, n_match = lsh_ops.containment_scan(
-                    flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, k
-                )
-            return ids, n_match
-
-        scan_k = min(max_out, 16)
-        return scan(scan_k) + (scan, scan_k, max_out, scan_keys)
+        count("ensemble.passes")
+        with span("dstt.glue.scan"):
+            keys, n_match = lsh_ops.containment_first_pass(
+                flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, max_out)
+        return n_match, max_out, lambda: (keys, q_sigs, q_sizes)
 
     def _scan_finish(self, item) -> list:
-        """Fetch and decode one dispatched scan batch, rerunning it at 128
-        and then at ``max_results`` while some query's exact match count
-        exceeds k (each rerun and its fetch under ``dstt.facade.rerun``)."""
-        ids, n_match, scan, scan_k, max_out, scan_keys = item
-        ids_host, n_host = _fetch(ids, n_match)
-        while scan_k < max_out and int(n_host.max(initial=0)) > scan_k:
+        """Fetch the match counts of one dispatched scan batch; rescan the
+        queries whose count exceeds ``max_out`` (under
+        ``dstt.facade.rerun``, which waits for the rescan's device work, so
+        it spans the rescan's cost); compact the answers' row ids on the
+        card and copy back only them; decode them into keys."""
+        n_match, max_out, on_card = item
+        keys, q_sigs, q_sizes = on_card()
+        flat_sigs, flat_sizes, scan_keys, _ = self._scan_table()
+        (n_host,) = _fetch(n_match)
+        n_host = n_host.astype(np.int64)
+        over = n_host > max_out
+        count("ensemble.rescanned", int(over.sum()))
+        if over.any():
             with span("dstt.facade.rerun"):
-                scan_k = min(max_out, 128 if scan_k < 128 else max_out)
-                ids, n_match = scan(scan_k)
-                ids_host, n_host = _fetch(ids, n_match)
-        self.last_truncated = int(np.maximum(n_host.astype(np.int64) - max_out, 0).sum())
+                count("ensemble.passes", lsh_ops.containment_rescan(
+                    flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, keys, n_host))
+                device_sync(keys.device)
+        self.last_truncated = int(np.maximum(n_host - max_out, 0).sum())
+        with span("dstt.glue.select_hits"):
+            _, flat_ids, _ = lsh_ops.compact_rows(lsh_ops.hit_ids(keys))
+        answers = np.minimum(n_host, max_out)
+        (ids_host,) = _fetch(flat_ids[: int(answers.sum())])
         with span("dstt.facade.decode"):
-            out = [scan_keys[row[row >= 0]].tolist() for row in ids_host]
+            found = scan_keys[ids_host].tolist()
+            ends = np.cumsum(answers).tolist()
+            out = [found[a:b] for a, b in zip([0] + ends[:-1], ends)]
         if recording():
-            count("ensemble.matches", int(n_host.sum(dtype=np.int64)))
-            count("facade.answers", sum(map(len, out)))
+            count("ensemble.matches", int(n_host.sum()))
+            count("facade.answers", len(found))
         return out
 
     def query_stream(self, batches, depth: int = 4):
         """Pipelined containment scans (the scan path of :meth:`query_batch`)
         over an iterable of query batches, each in any form
         :meth:`query_batch` takes: yields one result list per batch, with up
-        to ``depth`` batches in flight. A batch whose match counts overflow
-        k reruns when it is finished. Needs stored set sizes."""
+        to ``depth`` batches in flight. A batch with queries past
+        ``max_results`` rescans them when it is finished. Needs stored set
+        sizes."""
 
         def dispatch(batch):
             with span("dstt.upload.queries"):

@@ -17,8 +17,12 @@ Kernels: the rerank is kernel 3 (the ``db_sigs[cand_ids]`` gather fused
 in), the scan is kernel 2 for k <= 128 and a running top-k over kernel 4
 (the score matrix) above that, as in the JAX package; the containment
 scan is kernel 2's sizes mode for k <= 128 and the same running top-k
-over kernel 4 above that. :func:`compact_rows` (kernel 8) has no JAX
-counterpart: it compacts a threshold result before the copy back.
+over kernel 4 above that. :func:`containment_hits` computes the
+containment scan's result at k = cap another way, with no JAX
+counterpart: the sizes mode's emit variant writes every query's hits and
+exact match count in one pass, and only queries past the cap are scanned
+again. :func:`compact_rows` (kernel 8) has no JAX counterpart either: it
+compacts a threshold result before the copy back.
 """
 
 from __future__ import annotations
@@ -51,7 +55,17 @@ __all__ = [
     "build_tables_stacked",
     "query_stacked_masked",
     "containment_scan",
+    "containment_hits",
+    "containment_first_pass",
+    "containment_rescan",
+    "hit_ids",
+    "RESCAN_BUDGET",
 ]
+
+# Keys (int64, 256 MiB) one chunk of containment_rescan may hold; a chunk
+# always may hold N, so one query always fits.
+RESCAN_BUDGET = 1 << 25
+_ID_MASK = (1 << 31) - 1
 
 _FP_SEED = 0x9E3779B9
 
@@ -442,3 +456,86 @@ def containment_scan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k: int,
     db, sizes, q, qs = args
     return lsh_scan.running_topk(q, db, k, db.shape[0], None, cutoff,
                                  score.score_matrix, tile, sizes=sizes, q_sizes=qs)
+
+
+def _containment_args(db_sigs, db_sizes, q_sigs, q_sizes):
+    return (db_sigs.contiguous(), db_sizes.to(torch.int32).contiguous(),
+            q_sigs.contiguous(), q_sizes.to(torch.int32).contiguous())
+
+
+def containment_hits(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, cap: int,
+                     budget: int = RESCAN_BUDGET):
+    """Exact containment-threshold scan by emission: the result of
+    :func:`containment_scan` at k = ``cap``, from one pass of kernel 2s's
+    emit variant over every query (:func:`containment_first_pass`) and one
+    more over the queries with more than ``cap`` matches
+    (:func:`containment_rescan`, in chunks of at most ``budget`` keys).
+    The match counts are copied to the host between the two.
+
+    Returns:
+        (ids int32[Q, cap], containment f32[Q, cap], n_match int32[Q]) as
+        :func:`containment_scan` gives them.
+    """
+    args = (db_sigs, db_sizes, q_sigs, q_sizes, cutoff)
+    keys, n_match = containment_first_pass(*args, cap)
+    containment_rescan(*args, keys, n_match.cpu().numpy(), budget)
+    found = keys >= 0
+    sc = torch.where(found, (keys >> 31).to(torch.int32).view(torch.float32), -1.0)
+    return hit_ids(keys), sc, n_match
+
+
+def containment_first_pass(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, cap: int):
+    """Every query's hits (containment >= cutoff) as keys
+    ``bits(c) << 31 | (2**31 - 1 - row)`` in a row of ``cap`` slots, sorted
+    in descending order (so in (c desc, row asc) order, -1 after them), and
+    the exact match counts: one launch of kernel 2s's emit variant, then
+    one row sort (the ``dstt.glue.select_hits`` span). A row whose count is
+    at most ``cap`` is the query's whole answer; a row past it holds
+    ``cap`` of its hits, which :func:`containment_rescan` replaces.
+
+    Returns (keys int64[Q, cap], n_match int32[Q]), both on the device.
+    """
+    keys, n_match = lsh_scan.containment_hits(
+        *_containment_args(db_sigs, db_sizes, q_sigs, q_sizes), cutoff, cap)
+    with span("dstt.glue.select_hits"):
+        keys = torch.sort(keys, dim=1, descending=True).values
+    return keys, n_match
+
+
+def containment_rescan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, keys, n_host,
+                       budget: int = RESCAN_BUDGET) -> int:
+    """Put the top ``cap`` keys (``cap = keys.shape[1]``), in descending
+    order, into the row of ``keys`` of every query whose match count
+    ``n_host`` (host int[Q], the first pass's) exceeds ``cap``: each is
+    scanned again by the emit variant into a row with room for all its
+    hits, and ``torch.topk`` of the unique keys keeps the top ``cap`` (the
+    ``dstt.glue.select_hits`` span). Queries go largest count first, in
+    chunks whose [queries, largest count] buffer holds at most
+    ``max(budget, N)`` keys.
+
+    Returns the chunks scanned (0 where no query passed the cap).
+    """
+    cap = keys.shape[1]
+    n_host = np.asarray(n_host, dtype=np.int64)
+    over = np.nonzero(n_host > cap)[0]
+    if not over.size:
+        return 0
+    db, sizes, q, qs = _containment_args(db_sigs, db_sizes, q_sigs, q_sizes)
+    most = max(int(budget), db.shape[0])
+    order = over[np.argsort(-n_host[over], kind="stable")]
+    chunks = 0
+    while order.size:
+        width = int(n_host[order[0]])
+        rows = torch.from_numpy(order[: max(1, most // width)]).to(keys.device)
+        order = order[rows.numel():]
+        got, _ = lsh_scan.containment_hits(db, sizes, q[rows], qs[rows], cutoff, width)
+        with span("dstt.glue.select_hits"):
+            keys[rows] = torch.topk(got, cap, dim=1).values
+        chunks += 1
+    return chunks
+
+
+def hit_ids(keys):
+    """Row ids int32 of hit keys (``bits(c) << 31 | (2**31 - 1 - row)``),
+    -1 where a key is -1."""
+    return torch.where(keys >= 0, _ID_MASK - (keys & _ID_MASK), -1).to(torch.int32)

@@ -18,9 +18,9 @@ once. Span names are ``dstt.<layer>.<step>``:
 - ``dstt.facade.top_k``, ``dstt.facade.query_batch``: a whole
   ``TorchMinHashLSH`` or ``TorchMinHashLSHEnsemble`` call;
   ``dstt.facade.decode``: the host decode of a batch's results into keys
-  (and scores); ``dstt.facade.rerun``: a containment scan's pass after its
-  first (a larger k, because some query's match count exceeded the last),
-  with its fetch;
+  (and scores); ``dstt.facade.rerun``: a containment scan's second pass,
+  over the queries whose match count exceeded the answer cap, with its
+  selection;
 - ``dstt.facade.bulk_signatures``: a whole ``MinHash.bulk_signatures``
   call; ``dstt.facade.order``: its document normalisation, length sort
   and chunking; ``dstt.facade.scatter``: a chunk's rows put back in input
@@ -34,7 +34,9 @@ once. Span names are ``dstt.<layer>.<step>``:
 - ``dstt.glue.probe``: band fingerprints and bucket probes;
   ``dstt.glue.select``: dedupe, cutoff and compaction of candidates;
   ``dstt.glue.sign``: a sketching chunk's offsets and token widening;
-  ``dstt.glue.scan``: a containment scan pass's enqueue;
+  ``dstt.glue.scan``: a containment scan's first pass, enqueued;
+  ``dstt.glue.select_hits``: the row sort of a containment pass's hits,
+  the top-k of a second pass's rows, and the compaction of the answers;
   ``dstt.glue.running_topk``: the tiled running top-k over kernel 4 of a
   scan past k = 128;
 - ``dstt.kernel.<module>``: a kernel wrapper of
@@ -47,8 +49,10 @@ result tensors a ``TorchMinHashLSH`` batch copies back;
 its answers alone: it is compacted on the device first);
 ``facade.answers``, the entries the host decode returned;
 ``ensemble.passes``, the containment scan passes (the first and each
-rerun); ``ensemble.matches``, the match counts of a containment batch's
-queries, summed.
+chunk of the second); ``ensemble.rescanned``, the queries a containment
+batch scans a second time (counted in every batch, 0 included);
+``ensemble.matches``, the match counts of a containment batch's queries,
+summed.
 """
 
 from __future__ import annotations

@@ -157,7 +157,8 @@ def _meta(shape, dtype=torch.int32):
 
 
 @pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "containment_topk",
-                                  "rerank", "score", "bbit", "cws_dense", "cws_sparse"])
+                                  "containment_hits", "rerank", "score", "bbit", "cws_dense",
+                                  "cws_sparse"])
 def test_wrapper_on_other_device_raises(name):
     """A tensor that is neither on the CPU nor on a card never takes the
     plain version (which would happily run on 'meta')."""
@@ -168,6 +169,8 @@ def test_wrapper_on_other_device_raises(name):
         "topk_scan": lambda: lsh_scan.topk_scan(_meta((64, 128)), _meta((3, 128)), 5, 64),
         "containment_topk": lambda: lsh_scan.containment_topk(
             _meta((64, 128)), _meta((64,)), _meta((3, 128)), _meta((3,)), 5, 0.8),
+        "containment_hits": lambda: lsh_scan.containment_hits(
+            _meta((64, 128)), _meta((64,)), _meta((3, 128)), _meta((3,)), 0.8, 5),
         "rerank": lambda: rerank.rerank_scores(_meta((64, 128)), _meta((3, 128)),
                                                _meta((3, 7))),
         "score": lambda: score.score_matrix(_meta((3, 128)), _meta((64, 128))),
@@ -181,8 +184,8 @@ def test_wrapper_on_other_device_raises(name):
 
     def counters():
         return (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
-                rerank.launches, score.launches, bbit.launches, cws.launches,
-                cws.launches_sparse)
+                lsh_scan.launches_hits, rerank.launches, score.launches, bbit.launches,
+                cws.launches, cws.launches_sparse)
 
     before = counters()
     with pytest.raises(ValueError, match="CUDA device"):

@@ -33,8 +33,8 @@ def test_smoke_kernel_phase_on_cpu():
                         score_edges=dict(edge_t=(1, 63, 64, 65, 130), edge_q=(1, 33),
                                          wide=(70, 128)),
                         rerank_edges=dict(edge_c=(1, 33, 333), edge_n=500, edge_q=9))
-    for name in ("minhash_sign", "topk_scan", "containment_scan", "rerank", "score_matrix",
-                 "compact_rows"):
+    for name in ("minhash_sign", "topk_scan", "containment_scan", "containment_hits", "rerank",
+                 "score_matrix", "compact_rows"):
         assert smoke.record[name]["max_abs_err"] == 0.0
         assert smoke.record[name]["bound_by"] in ("bytes", "operations")
 

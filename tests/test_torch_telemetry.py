@@ -193,16 +193,16 @@ def test_counters_are_a_copy_and_reset():
 # ------------------------------------------------ the ensemble's scan path
 
 ENSEMBLE_SCAN = {"dstt.facade.query_batch", "dstt.upload.queries", "dstt.glue.scan",
-                 "dstt.kernel.lsh_scan", "dstt.upload.fetch", "dstt.facade.rerun",
-                 "dstt.glue.running_topk", "dstt.kernel.score", "dstt.facade.decode"}
+                 "dstt.kernel.lsh_scan", "dstt.glue.select_hits", "dstt.upload.fetch",
+                 "dstt.facade.rerun", "dstt.kernel.compact", "dstt.facade.decode"}
 
 
 @pytest.fixture(scope="module")
 def ensemble():
     """300 sets of uniform ids and 150 copies of one core set, with
-    ``max_results`` 140: a batch that asks the core reruns twice (k 16 ->
-    128 -> 140) and has 10 matches cut; one of subset queries alone stops
-    at k 16."""
+    ``max_results`` 140: a batch that asks the core twice rescans those 2
+    queries (150 matches each) and has 2 x 10 matches cut; one of subset
+    queries alone rescans none."""
     from datasketch_tpu_torch import TorchMinHashLSHEnsemble
 
     rng = np.random.RandomState(9)
@@ -218,51 +218,62 @@ def ensemble():
                                        out="host")
         return sigs, np.array([len(np.unique(q)) for q in queries])
 
-    return ix, batch(subsets + [core]), batch(subsets)
+    return ix, batch(subsets + [core, core]), batch(subsets)
 
 
 def _scan_calls(monkeypatch):
-    """Count the containment scans a batch runs, and their match counts."""
-    from datasketch_tpu_torch.ops import lsh_ops
+    """Count the emit-variant scans a batch runs: (queries, row capacity,
+    match counts) of each."""
+    from datasketch_tpu_torch.kernels import lsh_scan
 
-    real, runs = lsh_ops.containment_scan, []
+    real, runs = lsh_scan.containment_hits, []
 
-    def counted(*args, **kwargs):
-        out = real(*args, **kwargs)
-        runs.append(out)
+    def counted(db, sizes, q, q_sizes, cutoff, cap):
+        out = real(db, sizes, q, q_sizes, cutoff, cap)
+        runs.append((q.shape[0], cap, out[1]))
         return out
 
-    monkeypatch.setattr(lsh_ops, "containment_scan", counted)
+    monkeypatch.setattr(lsh_scan, "containment_hits", counted)
     return runs
+
+
+def _within(span_, outer) -> bool:
+    return any(ps <= span_[0] and span_[1] <= pt for ps, pt in outer)
 
 
 @pytest.mark.parametrize("reruns", [2, 0])
 def test_ensemble_scan_records_its_spans_inside_the_facade_call(ensemble, reruns, monkeypatch):
+    """``reruns``: the batch's queries past the cap, which one pass 2
+    scans again."""
     ix, rerun_batch, first_pass = ensemble
+    batch = rerun_batch if reruns else first_pass
     runs = _scan_calls(monkeypatch)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        ix.query_batch(rerun_batch if reruns else first_pass, method="scan")
+        ix.query_batch(batch, method="scan")
     spans = _spans(prof)
     names = [n for n, _, _ in spans]
-    assert len(runs) == reruns + 1
+    assert [r[0] for r in runs] == [len(batch[1])] + ([reruns] if reruns else [])
     if reruns:
         assert set(names) == ENSEMBLE_SCAN
     else:
-        assert set(names) == ENSEMBLE_SCAN - {"dstt.facade.rerun", "dstt.glue.running_topk",
-                                              "dstt.kernel.score"}
-    assert names.count("dstt.facade.query_batch") == 1
-    assert names.count("dstt.glue.scan") == names.count("dstt.upload.fetch") == reruns + 1
-    assert names.count("dstt.facade.rerun") == reruns
+        assert set(names) == ENSEMBLE_SCAN - {"dstt.facade.rerun"}
+    assert names.count("dstt.facade.query_batch") == names.count("dstt.glue.scan") == 1
+    assert names.count("dstt.upload.fetch") == 2  # the match counts, then the answers
+    assert names.count("dstt.facade.rerun") == int(bool(reruns))
+    assert names.count("dstt.kernel.lsh_scan") == len(runs)
+    # the first pass's row sort, the rescan's top-k, the answers' compaction
+    assert names.count("dstt.glue.select_hits") == 2 + int(bool(reruns))
     for name in ENSEMBLE_SCAN - {"dstt.facade.query_batch"}:
         if name in names:
             assert _inside(spans, name, "dstt.facade.query_batch"), name
-    nesting = [("dstt.kernel.lsh_scan", "dstt.glue.scan")]
-    if reruns:
-        nesting += [("dstt.glue.running_topk", "dstt.glue.scan"),
-                    ("dstt.kernel.score", "dstt.glue.running_topk"),
-                    ("dstt.glue.running_topk", "dstt.facade.rerun")]
-    for child, parent in nesting:
+    for child, parent in [("dstt.kernel.compact", "dstt.glue.select_hits")]:
         assert _inside(spans, child, parent), (child, parent)
+    of = {name: [(s, t) for n, s, t in spans if n == name] for name in set(names)}
+    scan, rerun = of["dstt.glue.scan"], of.get("dstt.facade.rerun", [])
+    kernel, select = of["dstt.kernel.lsh_scan"], of["dstt.glue.select_hits"]
+    assert _within(kernel[0], scan) and _within(select[0], scan)  # pass 1 and its sort
+    assert all(_within(s, rerun) for s in kernel[1:] + select[1:-1])  # pass 2 and its top-k
+    assert not _within(select[-1], scan + rerun)  # the compaction, after both
     assert not _inside(spans, "dstt.facade.decode", "dstt.facade.rerun")
 
 
@@ -286,14 +297,38 @@ def test_ensemble_counters_equal_the_passes_matches_and_bytes(ensemble, monkeypa
         out = ix.query_batch(rerun_batch, method="scan")
     got = profiling.counters()
     profiling.reset_counters()
-    n_match = runs[-1][2].long()
-    assert got["ensemble.passes"] == len(runs) == 3
-    assert [r[0].shape[1] for r in runs] == [16, 128, 140]
-    assert got["ensemble.matches"] == int(n_match.sum()) > 150
-    assert ix.last_truncated == 10
+    nq = len(rerun_batch[1])
+    n_match = runs[0][2].long()
+    over = (n_match > 140).nonzero().flatten()
+    # pass 1 over the batch at the cap; one pass 2 over exactly the queries
+    # past it, each in a row as wide as the largest count among them
+    assert got["ensemble.passes"] == len(runs) == 2
+    assert [r[:2] for r in runs] == [(nq, 140), (2, int(n_match.max()))]
+    assert got["ensemble.rescanned"] == over.numel() == 2
+    assert torch.equal(runs[1][2].long(), n_match[over])
+    assert got["ensemble.matches"] == int(n_match.sum()) > 300
+    assert ix.last_truncated == 20
     assert got["facade.answers"] == sum(map(len, out)) == int(n_match.clamp_max(140).sum())
     assert got["upload.fetch_bytes"] == sum(x.numel() * x.element_size() for x in copied)
-    assert len(copied) == 6  # ids and match counts of each pass
+    # the match counts, then the answers' row ids alone
+    assert [(x.dtype, x.numel()) for x in copied] == [(torch.int32, nq),
+                                                       (torch.int32, got["facade.answers"])]
+
+
+def test_ensemble_rescanned_is_counted_in_every_batch(ensemble, monkeypatch):
+    """A batch with no query past the cap counts 0 rescanned queries and
+    runs one pass; off the profiler no counter moves."""
+    ix, _, first_pass = ensemble
+    runs = _scan_calls(monkeypatch)
+    profiling.reset_counters()
+    ix.query_batch(first_pass, method="scan")
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        ix.query_batch(first_pass, method="scan")
+    got = profiling.counters()
+    profiling.reset_counters()
+    assert len(runs) == 2 and got["ensemble.rescanned"] == 0
+    assert got["ensemble.passes"] == 1 and ix.last_truncated == 0
 
 
 def test_ensemble_spans_off_record_nothing_and_cost_under_10us_a_call(ensemble, monkeypatch):
