@@ -21,8 +21,9 @@ Phases (any failed check raises and the script exits non-zero):
    the main paths' shapes and ragged edges (kernel 2 also at P 66 and 100,
    Q 1, 33 and 1,000, k 1 and 128, and a table scanned in one split;
    kernel 4 at P 66, 100 and 128, Q 1, 33 and 1,000, T 1 to 8,192 around
-   the 64-row tile, one split and many, and the k = 256 scan and k = 2,048
-   containment rerun on it; kernel 3 at P 66, 100, 128, 512 and 600 and C
+   the 64-row tile, one split and many, and the k = 256 scan on it; kernel
+   2s's emit variant and the k = 2,048 containment scan built on it;
+   kernel 3 at P 66, 100, 128, 512 and 600 and C
    1, 31, 32, 33, 333 and 3,200 with -1 and duplicated slots; kernel 6 at S
    1 to 1,030 and D 1, 333, 10,000 and 10,001 with fully dense rows and ties
    across chunks and segments; kernel 7 on rows whose entry order matters,
@@ -419,7 +420,7 @@ SHARDED_LSH_PATH = ("topk_scan", "rerank", "score_matrix")
 SHARDED_SKETCH_PATH = ("minhash_sign",)
 SHARDED_BBIT_PATH = ("bbit_scores",)
 SHARDED_FOREST_PATH = ("topk_scan", "rerank", "score_matrix")
-SHARDED_ENSEMBLE_PATH = ("minhash_sign", "containment_scan", "score_matrix")
+SHARDED_ENSEMBLE_PATH = ("minhash_sign", "containment_hits", "compact_rows")
 SHARDED_HNSW_PATH = ("minhash_sign", "topk_scan")
 
 
@@ -716,9 +717,8 @@ class Smoke:
         at both sides, one split and many; P 600 is the largest whose block
         fits the H100's 232,448 bytes of shared memory), the top-k k = 256
         scan at each P above 128, ``wide`` = (Q, T) where the query blocks
-        alone fill the card (one split), and the k > 128 scans built on it:
-        top-k k = 256 and the ensemble's k = 2,048 containment rerun against
-        the running top-k over the plain version."""
+        alone fill the card (one split), and the top-k k = 256 scan built on
+        it against the running top-k over the plain version."""
         torch = self.torch
         k2 = self.kmod("topk_scan")
         k4 = self.kmod("score_matrix")
@@ -777,14 +777,6 @@ class Smoke:
             lsh_ops.topk_scan(halves, q_halves, BIG_K, n2, alive, count_ge=0.5),
             k2.running_topk(q_halves, halves, BIG_K, n2, alive, 0.5,
                             k4.score_matrix_plain, 8192),
-        )
-        sizes, q_sizes = data["sizes"], data["q_sizes"]
-        big = 2048
-        self.compare(
-            "score_matrix", "containment k=%d rerun cutoff %.1f" % (big, ENS_THRESHOLD),
-            lsh_ops.containment_scan(db, sizes, q[:64], q_sizes[:64], ENS_THRESHOLD, big),
-            k2.running_topk(q[:64], db, big, n, None, ENS_THRESHOLD, k4.score_matrix_plain,
-                            8192, sizes=sizes, q_sizes=q_sizes[:64]),
         )
 
     def scan_data(self, n: int = N_INDEX, nq: int = N_QUERIES, n2: int = 100003,
@@ -913,9 +905,12 @@ class Smoke:
         A (past the cap), B (17 to ``cap`` matches), A at size 0, and
         near-copies of random rows (few or no matches). The cap is
         ``min(cap, n // 8)``. Timed at these shapes (the ensemble-4m
-        cell's P, Q and cap)."""
+        cell's P, Q and cap). Then ``containment_scan`` at k = cap on the
+        first 64 queries against the plain running top-k."""
         torch = self.torch
         k2 = self.kmod("containment_hits")
+        from datasketch_tpu_torch.ops import lsh_ops
+
         dev = self.device
         g = torch.Generator(device=dev).manual_seed(31)
         cap = min(cap, n // 8)
@@ -935,6 +930,11 @@ class Smoke:
         args = (db, sizes, q, q_sizes, ENS_THRESHOLD, cap)
         self.compare_hits("P %d N %d Q %d cap %d cutoff %.1f" % (p, n, nq, cap, ENS_THRESHOLD),
                           args, k2.containment_hits(*args), k2.containment_hits_plain(*args))
+        head = (db, sizes, q[:64], q_sizes[:64])
+        self.compare("containment_hits", "containment_scan k=%d cutoff %.1f"
+                     % (cap, ENS_THRESHOLD),
+                     lsh_ops.containment_scan(*head, ENS_THRESHOLD, cap),
+                     k2.containment_topk_plain(*head, cap, ENS_THRESHOLD))
         rec = self.record["containment_hits"]
         rec["ms"] = self.time_ms(lambda: k2.containment_hits(*args))
         rec["plain_ms"] = self.time_ms(lambda: k2.containment_hits_plain(*args), iters=1,
@@ -1705,16 +1705,14 @@ class Smoke:
         version at full size, and its truncation count against exact match
         counts of the plain version."""
         torch = self.torch
-        from datasketch_tpu_torch.kernels.lsh_scan import running_topk
-        from datasketch_tpu_torch.kernels.score import score_matrix_plain
+        from datasketch_tpu_torch.kernels.lsh_scan import containment_topk_plain
 
         sigs, sizes, keys, _ = index._scan_table()
         n, max_out = sigs.shape[0], min(index.max_results, sigs.shape[0])
         qs = torch.from_numpy(q_sizes.astype(np.int32)).to(self.device)
 
         def plain(q, q_s, k):
-            return running_topk(q, sigs, k, n, None, ENS_THRESHOLD, score_matrix_plain,
-                                sizes=sizes, q_sizes=q_s)
+            return containment_topk_plain(sigs, sizes, q, q_s, k, ENS_THRESHOLD)
 
         n_match = plain(q_sigs, qs, 1)[2].long()
         want = int((n_match - max_out).clamp_min(0).sum())
@@ -3505,9 +3503,9 @@ class Smoke:
     def phase_sharded_ensemble(self, docs, queries, src, parity_sets: int = ENS_PARITY_SETS):
         """ShardedMinHashLSHEnsemble (threshold 0.8, 8 partitions) over 4
         positions by ``index_tokens`` of ensemble-1m's sets, its subset
-        queries by scan (kernel 2's sizes mode, the k = 2,048 rerun on
-        kernel 4) and bands (kernel 3 is not on the bands path: its probe
-        returns candidates only)."""
+        queries by scan (kernel 2s's emit variant and kernel 8's
+        compaction on each shard) and bands (kernel 3 is not on the bands
+        path: its probe returns candidates only)."""
         from datasketch_tpu_torch import MinHash
         from datasketch_tpu_torch.parallel import ShardedMinHashLSHEnsemble
 

@@ -10,10 +10,10 @@ the plain PyTorch version; CUDA tensors launch the kernel or raise.
 mode's top-k, ``launches_hits`` its emit variant.
 
 :func:`running_topk` is the tiled running top-k that
-``ops.lsh_ops.topk_scan`` / ``containment_scan`` run over kernel 4 for
-k > 128 (the ``dstt.glue.running_topk`` span); the plain versions run its
-body over :func:`~datasketch_tpu_torch.kernels.score.score_matrix_plain`
-inside the kernel's own span.
+``ops.lsh_ops.topk_scan`` runs over kernel 4 for k > 128 (the
+``dstt.glue.running_topk`` span); the plain versions run its body over
+:func:`~datasketch_tpu_torch.kernels.score.score_matrix_plain` inside the
+kernel's own span.
 """
 
 from __future__ import annotations
@@ -34,6 +34,11 @@ __all__ = [
     "containment_hits",
     "containment_hits_plain",
     "running_topk",
+    "hit_keys",
+    "hit_ids",
+    "hit_scores",
+    "hit_counts",
+    "fold_topk",
     "min_hit_count",
     "MAX_K",
     "launches",
@@ -46,8 +51,39 @@ launches_sizes = 0
 launches_hits = 0
 
 MAX_K = 128  # the kernel keeps at most this many entries per query
-_ID_MASK = (1 << 31) - 1
 _PLAIN_TILE = 4096
+
+# A hit of row r (< 2**31) with value v, a non-negative f32 (its bits) or a
+# count, is the int64 key ``v << 31 | (2**31 - 1 - r)``; -1 is an empty slot.
+# Non-negative f32 bit patterns order like the floats, so keys order like
+# (v desc, r asc), and they are unique: ``torch.topk`` has no tie to break.
+_ID_MASK = (1 << 31) - 1
+
+
+def hit_keys(value_bits, rows):
+    """Keys of ``value_bits`` (int32) and ``rows`` (int64), broadcast."""
+    return (value_bits.to(torch.int64) << 31) | (_ID_MASK - rows)
+
+
+def hit_ids(keys):
+    """Row ids int32 of keys, -1 where empty."""
+    return torch.where(keys >= 0, _ID_MASK - (keys & _ID_MASK), -1).to(torch.int32)
+
+
+def hit_scores(keys):
+    """f32 values of keys packed from f32 bits, -1.0 where empty."""
+    return torch.where(keys >= 0, (keys >> 31).to(torch.int32).view(torch.float32), -1.0)
+
+
+def hit_counts(keys, offset: int = 0):
+    """int32 values less ``offset`` of keys packed from counts, -1 where empty."""
+    return torch.where(keys >= 0, (keys >> 31) - offset, -1).to(torch.int32)
+
+
+def fold_topk(best, keys):
+    """The tile carry: the best ``best.shape[1]`` keys of a row after one
+    more tile's ``keys``."""
+    return torch.topk(torch.cat([best, keys], dim=1), best.shape[1], dim=1).values
 
 
 def min_hit_count(cutoff: float, p: int) -> int:
@@ -59,13 +95,12 @@ def min_hit_count(cutoff: float, p: int) -> int:
 
 
 def running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
-                 score_fn, tile: int = _PLAIN_TILE, sizes=None, q_sizes=None):
+                 score_fn, tile: int = _PLAIN_TILE):
     """Exact top-k over db tiles with a running carry, under the
     ``dstt.glue.running_topk`` span (arguments and result as
     :func:`_running_topk`'s)."""
     with span("dstt.glue.running_topk"):
-        return _running_topk(q, db, k, n_valid, alive, cutoff, score_fn, tile, sizes,
-                             q_sizes)
+        return _running_topk(q, db, k, n_valid, alive, cutoff, score_fn, tile)
 
 
 def _running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
@@ -81,9 +116,7 @@ def _running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
     top-k (id, score) among rows < ``n_valid`` that ``alive`` keeps and
     that score >= ``cutoff`` (f32 compare), in (score desc, id asc) order,
     empty slots (-1, -1.0), and the count of such rows. Every candidate is
-    one int64 key ``score_bits << 31 | (2**31 - 1 - id)``: non-negative f32
-    bit patterns order like the floats, and keys are unique, so the top-k
-    of keys has no ties to break.
+    one hit key (:func:`hit_keys`).
     """
     n = db.shape[0]
     nq = q.shape[0]
@@ -106,16 +139,8 @@ def _running_topk(q, db, k: int, n_valid: int, alive, cutoff: float,
             valid &= x > 0
         hit = valid[None, :] & (sc >= cut)
         cnt += hit.sum(dim=1)
-        key = (sc.view(torch.int32).to(torch.int64) << 31) | (_ID_MASK - ids)[None, :]
-        key = torch.where(hit, key, -1)
-        cand = torch.cat([best, key], dim=1)
-        best = torch.topk(cand, k, dim=1).values
-    found = best >= 0
-    out_ids = torch.where(found, _ID_MASK - (best & _ID_MASK), -1).to(torch.int32)
-    out_sc = torch.where(
-        found, (best >> 31).to(torch.int32).view(torch.float32), -1.0
-    )
-    return out_ids, out_sc, cnt.to(torch.int32)
+        best = fold_topk(best, torch.where(hit, hit_keys(sc.view(torch.int32), ids), -1))
+    return hit_ids(best), hit_scores(best), cnt.to(torch.int32)
 
 
 def topk_scan_plain(db, q, k: int, n_valid: int, alive, cutoff: float):
@@ -148,8 +173,7 @@ def containment_hits_plain(db, sizes, q, q_sizes, cutoff: float, cap: int,
         hit = (x > 0)[None, :] & (c >= cut)
         slot = cnt[:, None] + hit.cumsum(dim=1) - 1
         put = hit & (slot < cap)
-        ids = torch.arange(r0, r1, device=dev)
-        key = (c.view(torch.int32).to(torch.int64) << 31) | (_ID_MASK - ids)[None, :]
+        key = hit_keys(c.view(torch.int32), torch.arange(r0, r1, device=dev))
         keys.view(-1)[(row_base + slot)[put]] = key[put]
         cnt += hit.sum(dim=1)
     return keys, cnt.to(torch.int32)
@@ -160,9 +184,8 @@ def containment_hits(db, sizes, q, q_sizes, cutoff: float, cap: int):
     counts: the emit variant of kernel 2's sizes mode.
 
     The hit test and estimate are :func:`containment_topk`'s. A hit of
-    stored row r at containment c is the int64 key
-    ``bits(c) << 31 | (2**31 - 1 - r)``: keys order like (c desc, r asc)
-    and are unique.
+    stored row r at containment c is the key :func:`hit_keys` packs from
+    ``bits(c)`` and r: keys order like (c desc, r asc) and are unique.
 
     Args:
         db: int32[N, P] stored signatures, N < 2**31; sizes: int32[N] set

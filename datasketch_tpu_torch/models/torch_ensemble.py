@@ -14,8 +14,7 @@ checkpoints load in either package.
 
 Weighted sketches go in as the JAX package's do: WeightedMinHash objects
 and [N, S, 2] (k, t) batches are mixed to slots (``ops.cws_ops.kt_slots``,
-on the batch's own device for a tensor). ``query_stream`` waits for the
-streams slice of the port.
+on the batch's own device for a tensor).
 """
 
 from __future__ import annotations
@@ -79,6 +78,14 @@ def _distinct_counts(token_docs, device: torch.device) -> np.ndarray:
 
 def _is_array(x) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor))
+
+
+def _answer_lists(row_keys: np.ndarray, ids: np.ndarray, answers) -> list:
+    """Per query, the keys of its ``answers[i]`` row ids, taken in turn
+    from the flat ``ids``."""
+    found = row_keys[ids].tolist()
+    ends = np.cumsum(answers).tolist()
+    return [found[a:b] for a, b in zip([0] + ends[:-1], ends)]
 
 
 class TorchMinHashLSHEnsemble:
@@ -364,7 +371,7 @@ class TorchMinHashLSHEnsemble:
                 )
             q_pad = pow2_at_least(q_sigs.shape[0], 8)
             if self._resolve_scan_method(method, q_pad) == "scan":
-                return self._query_scan(q_sigs, sizes)
+                return self._scan_finish(self._scan_dispatch(q_sigs, sizes))
             return self._query_bands(q_sigs, sizes, q_pad)
 
     def _b_keep(self, sizes: np.ndarray, q_pad: int) -> dict:
@@ -420,12 +427,6 @@ class TorchMinHashLSHEnsemble:
         self.last_truncated = total_trunc
         return [list(r) for r in results]
 
-    def _query_scan(self, q_sigs: torch.Tensor, sizes: np.ndarray) -> list:
-        """Containment scan of the compact table: one dispatch, then the
-        fetch of the match counts and of the answers (and a rescan of the
-        queries past the cap between them)."""
-        return self._scan_finish(self._scan_dispatch(q_sigs, sizes))
-
     def _scan_dispatch(self, q_sigs: torch.Tensor, sizes: np.ndarray):
         """Enqueue the first pass on the card: every query's hits, sorted,
         in a row of ``max_out`` slots, and its exact match count. Returns
@@ -435,45 +436,54 @@ class TorchMinHashLSHEnsemble:
         card."""
         flat_sigs, flat_sizes, _, _ = self._scan_table()
         max_out = min(self.max_results, flat_sigs.shape[0])
-        with span("dstt.upload.queries"):
-            q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
-        count("ensemble.passes")
-        with span("dstt.glue.scan"):
-            keys, n_match = lsh_ops.containment_first_pass(
-                flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, max_out)
+        q_sizes = torch.from_numpy(sizes.astype(np.int32)).to(self.device)
+        keys, n_match = lsh_ops.containment_first_pass(
+            flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, max_out)
         return n_match, max_out, lambda: (keys, q_sigs, q_sizes)
 
     def _scan_finish(self, item) -> list:
-        """Fetch the match counts of one dispatched scan batch; rescan the
-        queries whose count exceeds ``max_out`` (under
-        ``dstt.facade.rerun``, which waits for the rescan's device work, so
-        it spans the rescan's cost); compact the answers' row ids on the
-        card and copy back only them; decode them into keys."""
+        """Finish one dispatched scan batch on the compact table
+        (:meth:`_finish_pass`), copy back only the answers' row ids and
+        decode them into keys."""
         n_match, max_out, on_card = item
-        keys, q_sigs, q_sizes = on_card()
+        rec = recording()
         flat_sigs, flat_sizes, scan_keys, _ = self._scan_table()
-        (n_host,) = _fetch(n_match)
-        n_host = n_host.astype(np.int64)
-        over = n_host > max_out
-        count("ensemble.rescanned", int(over.sum()))
-        if over.any():
-            with span("dstt.facade.rerun"):
-                count("ensemble.passes", lsh_ops.containment_rescan(
-                    flat_sigs, flat_sizes, q_sigs, q_sizes, self.threshold, keys, n_host))
-                device_sync(keys.device)
+        n_host, answers, flat_ids = self._finish_pass(
+            flat_sigs, flat_sizes, n_match, *on_card(), max_out, rec)
         self.last_truncated = int(np.maximum(n_host - max_out, 0).sum())
-        with span("dstt.glue.select_hits"):
-            _, flat_ids, _ = lsh_ops.compact_rows(lsh_ops.hit_ids(keys))
-        answers = np.minimum(n_host, max_out)
         (ids_host,) = _fetch(flat_ids[: int(answers.sum())])
         with span("dstt.facade.decode"):
-            found = scan_keys[ids_host].tolist()
-            ends = np.cumsum(answers).tolist()
-            out = [found[a:b] for a, b in zip([0] + ends[:-1], ends)]
-        if recording():
+            out = _answer_lists(scan_keys, ids_host, answers)
+        if rec:
             count("ensemble.matches", int(n_host.sum()))
-            count("facade.answers", len(found))
+            count("facade.answers", int(answers.sum()))
         return out
+
+    def _finish_pass(self, sigs, sizes, n_match, keys, q_sigs, q_sizes, cap: int,
+                     rec: bool):
+        """One table's steps after its first pass: fetch the match counts;
+        rescan the queries past ``cap`` (under ``dstt.facade.rerun``, which
+        waits for the rescan's device work); compact the answers' row ids
+        on the card. Rows of ``keys`` past ``q_sigs``' (the sharded scan's
+        zero row) are only counted; counters move only when ``rec``.
+        Returns (match counts int64[rows] and answers int64[Q] on the host,
+        the answers' row ids int32 flat on the card)."""
+        nq = q_sigs.shape[0]
+        n_host = _fetch(n_match)[0].astype(np.int64)
+        real = n_host[:nq]
+        over = int((real > cap).sum())
+        chunks = 0
+        if over:
+            with span("dstt.facade.rerun"):
+                chunks = lsh_ops.containment_rescan(sigs, sizes, q_sigs, q_sizes,
+                                                    self.threshold, keys[:nq], real)
+                device_sync(keys.device)
+        if rec:
+            count("ensemble.passes", 1 + chunks)
+            count("ensemble.rescanned", over)
+        with span("dstt.glue.select_hits"):
+            _, flat_ids, _ = lsh_ops.compact_rows(lsh_ops.hit_ids(keys[:nq]))
+        return n_host, np.minimum(real, cap), flat_ids
 
     def query_stream(self, batches, depth: int = 4):
         """Pipelined containment scans (the scan path of :meth:`query_batch`)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from datasketch_tpu_torch.device import u32_to_i32
-from datasketch_tpu_torch.kernels import bbit
+from datasketch_tpu_torch.kernels import bbit, lsh_scan
 
 __all__ = [
     "slot_size",
@@ -28,7 +28,6 @@ __all__ = [
     "estimator_constants",
 ]
 
-_ID_MASK = (1 << 31) - 1
 _SCAN_ELEMS = 1 << 26  # counts per scan step: Q * tile
 _MIN_TILE = 4096
 
@@ -116,10 +115,9 @@ def bbit_topk_scan(db_packed: torch.Tensor, q_packed: torch.Tensor, k: int, b: i
 
     Kernel 5 scores the queries against one tile of stored rows at a time
     under a running top-k in (count desc, id asc) order, the order of the
-    JAX package's ``lax.top_k`` carry. Each candidate is one int64 key
-    ``count << 31 | (2**31 - 1 - id)``; keys are unique, so ``torch.topk``
-    of keys has no tie to break. Unlike the JAX scan, k is never cut to the
-    tile size.
+    JAX package's ``lax.top_k`` carry. Each candidate is one hit key of
+    its count and id (``lsh_scan.hit_keys``), and ``lsh_scan.fold_topk``
+    carries them. Unlike the JAX scan, k is never cut to the tile size.
 
     Args:
         db_packed: int32[N, W] packed rows; q_packed: int32[Q, W] queries.
@@ -150,16 +148,12 @@ def bbit_topk_scan(db_packed: torch.Tensor, q_packed: torch.Tensor, k: int, b: i
     for r0 in range(0, nv, tile):
         r1 = min(nv, r0 + tile)
         cnt = counts_fn(q_packed, db_packed[r0:r1], s)
-        ids = torch.arange(r0, r1, dtype=torch.int64, device=dev)
-        key = (cnt.to(torch.int64) << 31) | (_ID_MASK - ids)
+        key = lsh_scan.hit_keys(cnt, torch.arange(r0, r1, dtype=torch.int64, device=dev))
         if alive is not None:
             key = torch.where(alive[r0:r1], key, -1)
-        best = torch.topk(torch.cat([best, key], dim=1), k, dim=1).values
-    found = best >= 0
+        best = lsh_scan.fold_topk(best, key)
     pad = _pad_slots(q_packed.shape[1], b, num_perm)
-    ids = torch.where(found, _ID_MASK - (best & _ID_MASK), -1).to(torch.int32)
-    counts = torch.where(found, (best >> 31) - pad, -1).to(torch.int32)
-    return ids, counts
+    return lsh_scan.hit_ids(best), lsh_scan.hit_counts(best, pad)
 
 
 def estimator_constants(b: int, r1: float = 0.0, r2: float = 0.0):

@@ -16,12 +16,11 @@ facade calls. Conventions:
 Kernels: the rerank is kernel 3 (the ``db_sigs[cand_ids]`` gather fused
 in), the scan is kernel 2 for k <= 128 and a running top-k over kernel 4
 (the score matrix) above that, as in the JAX package; the containment
-scan is kernel 2's sizes mode for k <= 128 and the same running top-k
-over kernel 4 above that. :func:`containment_hits` computes the
-containment scan's result at k = cap another way, with no JAX
-counterpart: the sizes mode's emit variant writes every query's hits and
-exact match count in one pass, and only queries past the cap are scanned
-again. :func:`compact_rows` (kernel 8) has no JAX counterpart either: it
+scan is kernel 2's sizes mode for k <= 128, as in the JAX package, and
+:func:`containment_hits` above that, with no JAX counterpart: the sizes
+mode's emit variant writes every query's hits and exact match count in
+one pass, and only queries past the cap are scanned again.
+:func:`compact_rows` (kernel 8) has no JAX counterpart either: it
 compacts a threshold result before the copy back.
 """
 
@@ -65,7 +64,8 @@ __all__ = [
 # Keys (int64, 256 MiB) one chunk of containment_rescan may hold; a chunk
 # always may hold N, so one query always fits.
 RESCAN_BUDGET = 1 << 25
-_ID_MASK = (1 << 31) - 1
+
+hit_ids = lsh_scan.hit_ids  # row ids of hit keys, -1 where empty
 
 _FP_SEED = 0x9E3779B9
 
@@ -428,15 +428,13 @@ def topk_scan(db_sigs, q_sigs, k: int, n_valid=None, alive=None,
     return ids, sc, cnt
 
 
-def containment_scan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k: int,
-                     tile: int = 8192):
+def containment_scan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k: int):
     """Exact containment-threshold scan: score every stored signature.
 
     The containment of query A (size q) in stored set B (size x) is
     estimated from the MinHash Jaccard estimate j and the exact sizes as
     ``c = j * (x + q) / ((1 + j) * q)``. k <= 128 runs kernel 2's sizes
-    mode; larger k a running top-k over ``tile``-row score matrices from
-    kernel 4.
+    mode; larger k :func:`containment_hits` at cap k.
 
     Args:
         db_sigs: int32[N, P]; db_sizes: int32[N], <= 0 marks padding rows.
@@ -449,13 +447,10 @@ def containment_scan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k: int,
         below the cutoff are -1 / -1.0, and ``n_match`` counts every row
         >= cutoff, so truncation (n_match > k) is visible to the caller.
     """
-    args = (db_sigs.contiguous(), db_sizes.to(torch.int32).contiguous(),
-            q_sigs.contiguous(), q_sizes.to(torch.int32).contiguous())
     if k <= lsh_scan.MAX_K:
-        return lsh_scan.containment_topk(*args, k, cutoff)
-    db, sizes, q, qs = args
-    return lsh_scan.running_topk(q, db, k, db.shape[0], None, cutoff,
-                                 score.score_matrix, tile, sizes=sizes, q_sizes=qs)
+        return lsh_scan.containment_topk(
+            *_containment_args(db_sigs, db_sizes, q_sigs, q_sizes), k, cutoff)
+    return containment_hits(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, k)
 
 
 def _containment_args(db_sigs, db_sizes, q_sigs, q_sizes):
@@ -479,19 +474,17 @@ def containment_hits(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, cap: int,
     args = (db_sigs, db_sizes, q_sigs, q_sizes, cutoff)
     keys, n_match = containment_first_pass(*args, cap)
     containment_rescan(*args, keys, n_match.cpu().numpy(), budget)
-    found = keys >= 0
-    sc = torch.where(found, (keys >> 31).to(torch.int32).view(torch.float32), -1.0)
-    return hit_ids(keys), sc, n_match
+    return hit_ids(keys), lsh_scan.hit_scores(keys), n_match
 
 
 def containment_first_pass(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, cap: int):
-    """Every query's hits (containment >= cutoff) as keys
-    ``bits(c) << 31 | (2**31 - 1 - row)`` in a row of ``cap`` slots, sorted
-    in descending order (so in (c desc, row asc) order, -1 after them), and
-    the exact match counts: one launch of kernel 2s's emit variant, then
-    one row sort (the ``dstt.glue.select_hits`` span). A row whose count is
-    at most ``cap`` is the query's whole answer; a row past it holds
-    ``cap`` of its hits, which :func:`containment_rescan` replaces.
+    """Every query's hits (containment >= cutoff) as hit keys in a row of
+    ``cap`` slots, sorted in descending order (so in (c desc, row asc)
+    order, -1 after them), and the exact match counts: one launch of
+    kernel 2s's emit variant, then one row sort (the
+    ``dstt.glue.select_hits`` span). A row whose count is at most ``cap``
+    is the query's whole answer; a row past it holds ``cap`` of its hits,
+    which :func:`containment_rescan` replaces.
 
     Returns (keys int64[Q, cap], n_match int32[Q]), both on the device.
     """
@@ -533,9 +526,3 @@ def containment_rescan(db_sigs, db_sizes, q_sigs, q_sizes, cutoff, keys, n_host,
             keys[rows] = torch.topk(got, cap, dim=1).values
         chunks += 1
     return chunks
-
-
-def hit_ids(keys):
-    """Row ids int32 of hit keys (``bits(c) << 31 | (2**31 - 1 - row)``),
-    -1 where a key is -1."""
-    return torch.where(keys >= 0, _ID_MASK - (keys & _ID_MASK), -1).to(torch.int32)

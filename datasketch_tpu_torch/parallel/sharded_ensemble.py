@@ -9,11 +9,11 @@ holds none, but numbers partitions and sizes its per-shard result cap by
 ``pl`` as JAX does). Each shard builds its partitions' band tables for
 every r, probes them with the per-(query, partition) band counts and
 compacts its candidates before one all_gather per unique r; the scan path
-runs the containment scan over each shard's stacked rows (kernel 2's sizes
-mode, kernel 4 past k = 128) with JAX's staged k = 16 -> 128 ->
-``max_results``. The DP size partitioner, the (b, r) tables and the
-``.npz`` layout are the single-device class's, so checkpoints load in both
-classes of both packages.
+runs the single-device class's scan (kernel 2s's emit variant) on each
+shard's stacked rows at the cap JAX's staged k = 16 -> 128 ->
+``max_results`` ends at. The DP size partitioner, the (b, r) tables and
+the ``.npz`` layout are the single-device class's, so checkpoints load in
+both classes of both packages.
 """
 
 from __future__ import annotations
@@ -23,14 +23,14 @@ import torch
 
 from datasketch_tpu_torch.device import as_sig_tensor
 from datasketch_tpu_torch.models.minhash import pow2_at_least
-from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble
+from datasketch_tpu_torch.models.torch_ensemble import TorchMinHashLSHEnsemble, _answer_lists
+from datasketch_tpu_torch.models.torch_lsh import _fetch
 from datasketch_tpu_torch.ops import lsh_ops
-from datasketch_tpu_torch.parallel.collectives import all_gather_cat, psum
+from datasketch_tpu_torch.parallel.collectives import all_gather_cat, pmax, psum
 from datasketch_tpu_torch.parallel.mesh import Mesh, fetch_global
+from datasketch_tpu_torch.utils.profiling import recording, span
 
 __all__ = ["ShardedMinHashLSHEnsemble"]
-
-_METHODS = ("auto", "bands", "scan")
 
 
 class ShardedMinHashLSHEnsemble(TorchMinHashLSHEnsemble):
@@ -90,25 +90,6 @@ class ShardedMinHashLSHEnsemble(TorchMinHashLSHEnsemble):
 
     # ------------------------------------------------------------------ query
 
-    def query_batch(self, queries, method: str = "auto") -> list:
-        """Batched containment query across every shard: per unique r one
-        sharded band probe and all_gather (``'bands'``), or one sharded
-        containment scan (``'scan'``); ``'auto'`` takes the single-device
-        class's rule."""
-        if method not in _METHODS:
-            raise ValueError("method must be 'auto', 'bands' or 'scan'")
-        sizes, q_sigs = self._as_query_batch(queries)
-        if not len(sizes) or not self._tables:
-            return [[] for _ in range(len(sizes))]
-        if q_sigs.shape[1] != self.h:
-            raise ValueError(
-                "Expecting minhash with length %d, got %d" % (self.h, q_sigs.shape[1])
-            )
-        q_pad = pow2_at_least(q_sigs.shape[0], 8)
-        if self._resolve_scan_method(method, q_pad) == "scan":
-            return self._scan_finish(self._scan_dispatch(q_sigs, sizes))
-        return self._query_bands(q_sigs, sizes, q_pad)
-
     def _query_bands(self, q_sigs: torch.Tensor, sizes: np.ndarray, q_pad: int) -> list:
         """Per unique r: every shard probes its partitions (zero-padded
         queries, whose cap overflow JAX counts too), dedupes and compacts
@@ -154,9 +135,8 @@ class ShardedMinHashLSHEnsemble(TorchMinHashLSHEnsemble):
         return [list(r) for r in results]
 
     def _scan_dispatch(self, q_sigs: torch.Tensor, sizes: np.ndarray):
-        """Enqueue the sharded containment scan at k = 16 (the inherited
-        ``query_stream`` pipelines through this and :meth:`_scan_finish`):
-        each shard scans its stacked rows and keeps its best k.
+        """Enqueue the first pass on every shard that holds rows, at the
+        per-shard cap; returns what the single-device dispatch does.
 
         JAX's sharded scan also scans the zero rows (size 1) that pad its
         batch to a power of two >= 8, and their overflow enters its rerun
@@ -165,44 +145,48 @@ class ShardedMinHashLSHEnsemble(TorchMinHashLSHEnsemble):
         once for each padding row."""
         nq = q_sigs.shape[0]
         n_zero = pow2_at_least(nq, 8) - nq
-        full_out = min(self.max_results, self._parts_local * self._n_pad)
+        cap = min(self.max_results, self._parts_local * self._n_pad)
         q_all = torch.cat([q_sigs, torch.zeros_like(q_sigs[:1])]) if n_zero else q_sigs
         q_sizes = torch.from_numpy(np.append(sizes, 1)[: q_all.shape[0]].astype(np.int32))
-
-        def scan(k):
-            ids, over = {}, {}
-            for s, shard in self._tables.items():
+        passes = {}
+        for s, shard in self._tables.items():
+            if shard["sigs"].shape[0]:
                 dev = self.mesh.shard_device(self.shard_axis, s)
-                if not shard["sigs"].shape[0]:
-                    ids[s] = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-                    over[s] = 0
-                    continue
-                loc, _, n_match = lsh_ops.containment_scan(
-                    shard["sigs"].reshape(-1, self.h), shard["sizes"], q_all.to(dev),
-                    q_sizes.to(dev), self.threshold, k,
-                )
-                lo = self._parts(s)[0]
-                ids[s] = torch.where(loc[:nq] >= 0, loc[:nq] + lo * self._n_pad, -1)
-                rows = (n_match.long() - k).clamp_min(0)
-                over[s] = rows[:nq].sum() + n_zero * rows[nq:].sum()
-            return all_gather_cat(self.mesh, self.shard_axis, ids, dim=1), psum(self.mesh, over)
-
-        scan_k = min(full_out, 16)
-        return scan(scan_k) + (scan, scan_k, full_out)
+                q, qs = q_all.to(dev), q_sizes.to(dev)
+                passes[s] = lsh_ops.containment_first_pass(
+                    shard["sigs"].reshape(-1, self.h), shard["sizes"], q, qs,
+                    self.threshold, cap) + (q[:nq], qs[:nq])
+        return [p[1] for p in passes.values()], (cap, nq, n_zero), lambda: passes
 
     def _scan_finish(self, item) -> list:
-        """Fetch one dispatched scan; rerun at 128 and then at the full
-        per-shard width while some shard matched more rows than k. Results
-        keep the gathered order: shard by shard, each (c desc, row asc)."""
-        ids, over, scan, scan_k, full_out = item
-        over = int(over)
-        while scan_k < full_out and over > 0:
-            scan_k = min(full_out, 128 if scan_k < 128 else full_out)
-            ids, over = scan(scan_k)
-            over = int(over)
-        self.last_truncated = over
+        """Finish each shard's pass (the zero row is never rescanned);
+        gather every shard's answer counts and row ids, padded to the
+        longest, in one copy back. Results keep JAX's gathered order:
+        shard by shard, each (c desc, row asc)."""
+        n_match, (cap, nq, n_zero), on_card = item
+        rec = recording()
+        over, part = dict.fromkeys(self._tables, 0), {}
+        for (s, (keys, _, q, qs)), n_s in zip(on_card().items(), n_match):
+            shard = self._tables[s]
+            n_host, answers, ids = self._finish_pass(
+                shard["sigs"].reshape(-1, self.h), shard["sizes"], n_s, keys, q, qs, cap,
+                rec)
+            rows = np.maximum(n_host - cap, 0)
+            over[s] = int(rows[:nq].sum() + n_zero * rows[nq:].sum())
+            part[s] = torch.cat([torch.from_numpy(answers.astype(np.int32)).to(ids.device),
+                                 ids[: int(answers.sum())] + self._parts(s)[0] * self._n_pad])
+        for s in self._tables.keys() - part.keys():  # a shard without partitions
+            part[s] = torch.zeros(nq, dtype=torch.int32,
+                                  device=self.mesh.shard_device(self.shard_axis, s))
+        width = int(pmax(self.mesh, {s: len(t) for s, t in part.items()}))
+        part = {s: torch.nn.functional.pad(t, (0, width - len(t))) for s, t in part.items()}
+        (host,) = _fetch(all_gather_cat(self.mesh, self.shard_axis, part, dim=0))
+        self.last_truncated = int(psum(self.mesh, over))
         keys_flat = self._flat_keys()
-        return [keys_flat[row[row >= 0]].tolist() for row in ids.cpu().numpy()]
+        with span("dstt.facade.decode"):
+            lists = [_answer_lists(keys_flat, row[nq: nq + row[:nq].sum()], row[:nq])
+                     for row in host.reshape(-1, width)]
+            return [sum(parts, []) for parts in zip(*lists)]
 
     # ------------------------------------------------------------ persistence
 

@@ -34,11 +34,10 @@ once. Span names are ``dstt.<layer>.<step>``:
 - ``dstt.glue.probe``: band fingerprints and bucket probes;
   ``dstt.glue.select``: dedupe, cutoff and compaction of candidates;
   ``dstt.glue.sign``: a sketching chunk's offsets and token widening;
-  ``dstt.glue.scan``: a containment scan's first pass, enqueued;
   ``dstt.glue.select_hits``: the row sort of a containment pass's hits,
   the top-k of a second pass's rows, and the compaction of the answers;
   ``dstt.glue.running_topk``: the tiled running top-k over kernel 4 of a
-  scan past k = 128;
+  top-k scan past k = 128;
 - ``dstt.kernel.<module>``: a kernel wrapper of
   :mod:`datasketch_tpu_torch.kernels` (the launch's enqueue on a card, the
   plain twin on the CPU).

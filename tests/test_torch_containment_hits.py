@@ -1,7 +1,8 @@
 """Port parity: ``ops.lsh_ops.containment_hits`` (one pass of kernel 2s's
 emit variant, a row sort, and an exact rescan of the queries past the cap,
-through the plain twin on the CPU) against ``containment_scan`` at k = cap
-and against the JAX package's ``containment_scan``: ids, f32 containment
+through the plain twin on the CPU) against the plain running top-k at
+k = cap (``lsh_scan.containment_topk_plain``) and against the JAX
+package's ``containment_scan``: ids, f32 containment
 scores and match counts, exact. The facade's scan path built on it against
 ``TpuMinHashLSHEnsemble``. The card's emit variant against the plain twin
 (``-m cuda``; the card's machine has no JAX, so only the CPU tests import
@@ -102,7 +103,7 @@ def test_containment_hits_match_the_scan_and_jax(p, cutoff, monkeypatch):
     assert (np.diff(row[row >= 0]) == 0).any()
     # pass 1 over the batch, one pass 2 over the queries past the cap
     assert runs == [(len(n), CAP), (int((n > CAP).sum()), int(n.max()))]
-    _eq(got, [x.numpy() for x in lsh_ops.containment_scan(*_tensors(case), cutoff, CAP)])
+    _eq(got, [x.numpy() for x in lsh_scan.containment_topk_plain(*_tensors(case), CAP, cutoff)])
     _eq(got, _jax(case, cutoff, CAP))
 
 
@@ -276,7 +277,8 @@ def test_the_emit_variant_on_the_card_matches_the_twin(dev, p, cutoff):
 def test_the_emit_variant_on_the_card_at_many_splits(dev, nq):
     """200,003 rows of 2-valued slots at P 256 (many matches a query, ties)
     and 3-valued ones at P 128, ragged Q: the first 33 queries' rows
-    against the twin, and the whole op against the card's top-k scan."""
+    against the twin, and the whole op against the plain running top-k on
+    the card."""
     for p, values in ((256, 2), (128, 3)):
         g = torch.Generator(device=dev).manual_seed(nq + p)
         n = 200003
@@ -293,7 +295,7 @@ def test_the_emit_variant_on_the_card_at_many_splits(dev, nq):
         _rows_agree(keys[:33], n_match[:33],
                     *lsh_scan.containment_hits_plain(*head, cutoff, 256), 256)
         got = lsh_ops.containment_hits(*card, cutoff, 256)
-        want = lsh_ops.containment_scan(*card, cutoff, 256)
+        want = lsh_scan.containment_topk_plain(*card, 256, cutoff)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
 

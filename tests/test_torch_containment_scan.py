@@ -1,5 +1,5 @@
 """Port parity: ``ops.lsh_ops.containment_scan`` (kernel 2's sizes mode for
-k <= 128 and the running top-k over kernel 4 above, through their plain
+k <= 128 and the emit variant's pass and rescan above, through their plain
 versions) against the JAX package's ``containment_scan`` in its lax.scan
 form and in its fused Pallas form (interpret mode, through the package's
 SCORE_KERNEL_INTERPRET switch) -- exact: ids, f32 containment scores and
@@ -36,9 +36,9 @@ def _case(p, n=700, nq=21, seed=44):
     return db, sizes, q, q_sizes
 
 
-def _port(db, sizes, q, q_sizes, cutoff, k, tile=8192):
+def _port(db, sizes, q, q_sizes, cutoff, k):
     t = [torch.from_numpy(x.view(np.int32)) for x in (db, sizes, q, q_sizes)]
-    return [x.numpy() for x in lsh_ops.containment_scan(*t, cutoff, k, tile=tile)]
+    return [x.numpy() for x in lsh_ops.containment_scan(*t, cutoff, k)]
 
 
 def _jax(db, sizes, q, q_sizes, cutoff, k, fused, tile=128):
@@ -73,10 +73,11 @@ def test_containment_scan_matches_both_jax_forms(p, k):
 
 @pytest.mark.parametrize("cutoff", [0.0, 0.95])
 def test_containment_scan_large_k_matches_jax_scan_form(cutoff):
-    """k > 128 at P = 66: the running top-k over kernel 4's plain version
-    against the lax.scan form, each with several tiles."""
+    """k > 128 at P = 66: the emission route (one pass of the emit
+    variant's plain twin at cap 200, a rescan of the queries past it)
+    against the lax.scan form in 256-row tiles."""
     case = _case(66)
-    got = _port(*case, cutoff, 200, tile=256)
+    got = _port(*case, cutoff, 200)
     _eq(got, _jax(*case, cutoff, 200, fused=False, tile=256))
     assert got[0].shape == (21, 200)
 

@@ -278,16 +278,15 @@ def test_score_kernel_grid_of_one_split(dev):
 
 
 def test_containment_rerun_past_128_matches_plain(dev):
-    """The ensemble's k = 2,048 containment rerun on kernel 4 against the
-    running top-k over the plain version."""
+    """The containment scan at k = 2,048 (the emit variant's pass and
+    rescan) against the plain running top-k."""
     db = _sigs(dev, 20011, 128, 74, values=3)
     q = db[:40].clone()
     sizes = _sizes(dev, 20011, 75)
     sizes[::13] = 0
     q_sizes = _sizes(dev, 40, 76)
     got = lsh_ops.containment_scan(db, sizes, q, q_sizes, 0.3, 2048)
-    want = lsh_scan.running_topk(q, db, 2048, 20011, None, 0.3, score.score_matrix_plain,
-                                 8192, sizes=sizes, q_sizes=q_sizes)
+    want = lsh_scan.containment_topk_plain(db, sizes, q, q_sizes, 2048, 0.3)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 

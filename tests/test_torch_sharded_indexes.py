@@ -207,6 +207,55 @@ def test_ensemble_scan_counts_the_padding_rows_as_jax(mesh_name):
     assert t.last_truncated == j.last_truncated > 0
 
 
+@pytest.mark.parametrize("mesh_name", ["2x2", "8x1"])
+def test_ensemble_scan_passes_once_a_shard_and_rescans_real_queries_only(mesh_name,
+                                                                        monkeypatch):
+    """The sharded scan runs kernel 2s's emit variant once on every shard
+    that holds rows, at the per-shard cap, and again only over the real
+    queries past the cap in their shard: the zero row that stands for the
+    padding queries passes it in every shard and is never rescanned. It
+    calls neither kernel 2s's top-k variant nor kernel 4."""
+    from datasketch_tpu_torch.kernels import lsh_scan, score
+
+    jm, tm = _meshes(mesh_name)
+    rng = np.random.RandomState(12)
+    sigs = rng.randint(0, 3, size=(200, P)).astype(np.uint32)
+    sizes = rng.randint(1, 300, size=200)
+    args = dict(threshold=0.5, num_perm=P, num_part=3, bucket_cap=16, max_results=3)
+    j = J.ShardedMinHashLSHEnsemble(jm, **args)
+    t = T.ShardedMinHashLSHEnsemble(tm, **args)
+    j.index([(i, JP.MinHash(num_perm=P, hashvalues=sigs[i]), int(sizes[i]))
+             for i in range(200)])
+    t.index_batch(range(200), sigs, sizes)
+    real, runs = lsh_scan.containment_hits, []
+
+    def counted(db, sizes, q, q_sizes, cutoff, cap):
+        out = real(db, sizes, q, q_sizes, cutoff, cap)
+        runs.append((q.shape[0], cap, out[1]))
+        return out
+
+    def banned(*args, **kwargs):
+        raise AssertionError("the sharded scan ran a top-k scan")
+
+    monkeypatch.setattr(lsh_scan, "containment_hits", counted)
+    monkeypatch.setattr(lsh_scan, "containment_topk", banned)
+    monkeypatch.setattr(score, "score_matrix", banned)
+    got = t.query_batch((sigs[:5], [299] * 5), method="scan")
+    holding = [s for s, shard in t._tables.items() if shard["sigs"].shape[0]]
+    assert len(holding) == min(3, t.n_shards)  # 3 partitions
+    first, rescans = runs[: len(holding)], runs[len(holding):]
+    assert [r[:2] for r in first] == [(6, 3)] * len(holding)  # 5 queries and the zero row
+    assert all(int(n[5]) > 3 for _, _, n in first)
+    # real queries past the cap, shard by shard: on 8 x 1 the first shard
+    # holds none, only the zero row, and rescans nothing
+    want = [int((n[:5] > 3).sum()) for _, _, n in first]
+    assert want == {"2x2": [2, 5], "8x1": [0, 2, 5]}[mesh_name]
+    assert [r[0] for r in rescans] == [w for w in want if w]
+    assert got == j.query_batch([(JP.MinHash(num_perm=P, hashvalues=x), 299)
+                                 for x in sigs[:5]], method="scan")
+    assert t.last_truncated == j.last_truncated > 0
+
+
 def test_ensemble_checkpoints_both_ways(tmp_path):
     j, t = _ensembles("4x2")
     j.save(str(tmp_path / "jax.npz"))

@@ -192,9 +192,9 @@ def test_counters_are_a_copy_and_reset():
 
 # ------------------------------------------------ the ensemble's scan path
 
-ENSEMBLE_SCAN = {"dstt.facade.query_batch", "dstt.upload.queries", "dstt.glue.scan",
-                 "dstt.kernel.lsh_scan", "dstt.glue.select_hits", "dstt.upload.fetch",
-                 "dstt.facade.rerun", "dstt.kernel.compact", "dstt.facade.decode"}
+ENSEMBLE_SCAN = {"dstt.facade.query_batch", "dstt.upload.queries", "dstt.kernel.lsh_scan",
+                 "dstt.glue.select_hits", "dstt.upload.fetch", "dstt.facade.rerun",
+                 "dstt.kernel.compact", "dstt.facade.decode"}
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +257,7 @@ def test_ensemble_scan_records_its_spans_inside_the_facade_call(ensemble, reruns
         assert set(names) == ENSEMBLE_SCAN
     else:
         assert set(names) == ENSEMBLE_SCAN - {"dstt.facade.rerun"}
-    assert names.count("dstt.facade.query_batch") == names.count("dstt.glue.scan") == 1
+    assert names.count("dstt.facade.query_batch") == names.count("dstt.upload.queries") == 1
     assert names.count("dstt.upload.fetch") == 2  # the match counts, then the answers
     assert names.count("dstt.facade.rerun") == int(bool(reruns))
     assert names.count("dstt.kernel.lsh_scan") == len(runs)
@@ -269,11 +269,13 @@ def test_ensemble_scan_records_its_spans_inside_the_facade_call(ensemble, reruns
     for child, parent in [("dstt.kernel.compact", "dstt.glue.select_hits")]:
         assert _inside(spans, child, parent), (child, parent)
     of = {name: [(s, t) for n, s, t in spans if n == name] for name in set(names)}
-    scan, rerun = of["dstt.glue.scan"], of.get("dstt.facade.rerun", [])
+    rerun, counts = of.get("dstt.facade.rerun", []), of["dstt.upload.fetch"][0]
     kernel, select = of["dstt.kernel.lsh_scan"], of["dstt.glue.select_hits"]
-    assert _within(kernel[0], scan) and _within(select[0], scan)  # pass 1 and its sort
+    # pass 1 and its sort, before the count fetch
+    assert kernel[0][1] <= select[0][0] and select[0][1] <= counts[0]
     assert all(_within(s, rerun) for s in kernel[1:] + select[1:-1])  # pass 2 and its top-k
-    assert not _within(select[-1], scan + rerun)  # the compaction, after both
+    # the compaction, after both
+    assert select[-1][0] >= counts[1] and not _within(select[-1], rerun)
     assert not _inside(spans, "dstt.facade.decode", "dstt.facade.rerun")
 
 
