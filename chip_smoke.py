@@ -15,7 +15,8 @@ capability >= 9.0 (Hopper):
 Phases (any failed check raises and the script exits non-zero):
 
 1. environment: torch / CUDA versions, the card, its power limit;
-2. build: the CUDA kernels (nvcc) and the host SHA1 module (g++);
+2. build: the CUDA kernels (nvcc), the host SHA1 module and the token pack
+   (g++);
 3. kernel parity: each kernel (kernel 2 in its plain and its sizes mode)
    against its plain PyTorch version on the same CUDA tensors, exact, at
    the main paths' shapes and ragged edges (kernel 2 also at P 66 and 100,
@@ -33,10 +34,15 @@ Phases (any failed check raises and the script exits non-zero):
    f32 operations over 67 TFLOP/s) and, where one PyTorch call computes
    the same function, that call's time; kernel 5 at every slot size,
    num_perm 128, 100 and 256 and ragged shapes, and timed at Q 1,024 x T
-   1,048,576 at b = 1 and b = 4 beside ``torch.cdist(p=0)``;
+   1,048,576 at b = 1 and b = 4 beside ``torch.cdist(p=0)``; kernel 9
+   (SHA1 of packed bytes tokens read from pinned host memory) against
+   ``hashlib`` and its plain version at the padding edges, on 200,000
+   tokens of 0-130 bytes, past its staging window, and timed on one
+   sign-16k chunk beside the native pack's host time;
 4. signatures: ``MinHash.bulk_signatures`` over the bench corpus (16,384
-   docs x 200 SHA1 tokens), checked against the plain version and a host
-   numpy evaluation of the reference formula;
+   docs x 200 SHA1 tokens: the native pack, kernel 9, kernel 1), checked
+   against the plain version and a host numpy evaluation of the reference
+   formula;
 5. index: a 1,048,576-row ``TorchMinHashLSH`` (the signatures plus
    planted near-duplicates);
 6. serving: 1,024-query ``top_k`` (scan, bands, auto; k = 10 and 256),
@@ -67,7 +73,7 @@ Phases (any failed check raises and the script exits non-zero):
 7. facade parity: a 65,536-row CUDA index against a ``device="cpu"`` one,
    and an index built from rows of a device tensor (a list, then single
    inserts) queried by lists of device rows against the batch index;
-8. launch counts of kernels 1-4 during phases 4-6 (each must be > 0);
+8. launch counts of kernels 1-4, 8 and 9 during phases 4-6 (each must be > 0);
 9. ensemble: 1,048,576 integer-token sets (lognormal sizes around 120,
    Zipf(0.8) ids over 50,000) indexed by ``TorchMinHashLSHEnsemble.
    index_tokens`` (threshold 0.8, 8 partitions), 1,024 subset queries by
@@ -316,6 +322,16 @@ SH_HNSW_PARITY_SETS = 4096  # held against the same class on the CPU
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# the host link: PCIe 5.0 x16, one way (kernel 9 reads pinned host memory)
+PEAK_LINK_BYTES = 64e9
+# kernel 9: integer operations of one SHA1 compression: 80 rounds of a
+# rotate, one LOP3 for f, two 3-input adds and the rotate of b, and 64
+# schedule steps of two LOP3s and a rotate
+SHA1_COMPRESS_OPS = 80 * 5 + 64 * 3
+# kernel 9's parity tokens (random lengths 0-130) and its 1,000-byte tokens
+# (a block's range past the 16 KiB staging window)
+SHA1_RAND_TOKENS = 200_000
+SHA1_LONG_TOKENS = 256
 # integer ALU lanes per SM per clock (16 in each of the SM's 4 partitions);
 # off the card, for a rehearsal, the H100 SXM's SMs and maximum SM clock
 INT_LANES_PER_SM = 64
@@ -401,8 +417,17 @@ KERNELS = [
         "source": "datasketch_tpu_torch/csrc/compact.cu",
         "replaces": "none: the JAX package copies its padded threshold result whole",
     },
+    {
+        "name": "sha1",
+        "module": "sha1",
+        "source": "datasketch_tpu_torch/csrc/sha1.cu",
+        "replaces": "none: the JAX package hashes SHA1 on the host",
+    },
 ]
-LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix", "compact_rows")
+# kernel 9 runs where a phase signs SHA1 bytes tokens by bulk_signatures on
+# the card (the signatures, host-lsh-262k's queries, the schemes' rate);
+# update_batch, bulk and bulk_from_text hash on the host
+LSH_PATH = ("minhash_sign", "topk_scan", "rerank", "score_matrix", "compact_rows", "sha1")
 ENSEMBLE_PATH = ("minhash_sign", "containment_hits", "compact_rows")
 WEIGHTED_PATH = ("cws_sparse", "cws_dense", "topk_scan", "rerank")
 BBIT_PATH = ("bbit_scores",)
@@ -411,11 +436,11 @@ FOREST_PATH = ("topk_scan", "rerank", "score_matrix")
 FOREST16_PATH = ("topk_scan", "rerank")
 FACADE2_PATH = ("topk_scan", "rerank", "score_matrix")
 MINHASH_PATH = ("minhash_sign",)
-SCHEMES_PATH = ("minhash_sign", "topk_scan", "rerank")
+SCHEMES_PATH = ("minhash_sign", "topk_scan", "rerank", "sha1")
 HNSW_PATH = ("minhash_sign", "topk_scan")
 HNSW_M48_PATH = ("score_matrix",)
 FAILOVER_PATH = ("topk_scan", "rerank", "score_matrix")
-HOST_LSH_PATH = ("minhash_sign", "rerank")
+HOST_LSH_PATH = ("minhash_sign", "rerank", "sha1")
 SHARDED_LSH_PATH = ("topk_scan", "rerank", "score_matrix")
 SHARDED_SKETCH_PATH = ("minhash_sign",)
 SHARDED_BBIT_PATH = ("bbit_scores",)
@@ -478,22 +503,26 @@ class Smoke:
         device_sync(self.device)
 
     def bound(self, name: str, nbytes: float, int_ops: float = 0.0,
-              f32_ops: float = 0.0, unfused_ops: float = 0.0) -> None:
+              f32_ops: float = 0.0, unfused_ops: float = 0.0,
+              link_bytes: float = 0.0) -> None:
         """Record the least time the card could take for a timed call: the
         largest of ``int_ops`` over the integer ALU rate (:func:`int_rate`),
         ``f32_ops`` over the f32 peak, ``unfused_ops`` (f32 operations that
-        cannot fuse) over PEAK_F32_UNFUSED_OPS and ``nbytes`` (each input
-        read once, each output written once) over the memory rate."""
+        cannot fuse) over PEAK_F32_UNFUSED_OPS, ``nbytes`` (each input
+        read once, each output written once) over the memory rate and
+        ``link_bytes`` (read from pinned host memory) over the PCIe rate."""
         t_ops = max(int_ops / self.int_rate, f32_ops / PEAK_F32_OPS,
                     unfused_ops / PEAK_F32_UNFUSED_OPS) * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_link = link_bytes / PEAK_LINK_BYTES * 1e3
         rec = self.record[name]
-        rec["bound_ms"] = max(t_ops, t_bytes)
-        rec["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["bound_ms"] = max(t_ops, t_bytes, t_link)
+        rec["bound_by"] = ("operations" if t_ops >= max(t_bytes, t_link) else
+                           "bytes" if t_bytes >= t_link else "PCIe bytes")
         log("  %-13s bound %.4f ms (%.3e integer ops, %.3e f32 ops, %.3e unfused f32 ops, "
-            "%.3e bytes), kernel %s ms, plain %s ms"
-            % (name, rec["bound_ms"], int_ops, f32_ops, unfused_ops, nbytes, rec["ms"],
-               rec["plain_ms"]))
+            "%.3e bytes, %.3e PCIe bytes), kernel %s ms, plain %s ms"
+            % (name, rec["bound_ms"], int_ops, f32_ops, unfused_ops, nbytes, link_bytes,
+               rec["ms"], rec["plain_ms"]))
 
     def compare(self, name: str, case: str, got, want) -> None:
         """Exact equality of kernel and plain outputs (tuples allowed)."""
@@ -555,19 +584,23 @@ class Smoke:
         t_nvcc = time.perf_counter() - t0
         t0 = time.perf_counter()
         native.load()
+        native.load("_token_pack")
         t_gxx = time.perf_counter() - t0
-        log("[build] kernels (nvcc) %.2f s, host SHA1 (g++) %.2f s" % (t_nvcc, t_gxx))
+        log("[build] kernels (nvcc) %.2f s, host SHA1 and token pack (g++) %.2f s"
+            % (t_nvcc, t_gxx))
         for line in build.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
 
     def phase_kernels(self, n_docs: int = 8192, n_ragged: int = 1001, scan=None,
-                      scan_edges=None, score_edges=None, rerank_edges=None) -> None:
+                      scan_edges=None, score_edges=None, rerank_edges=None,
+                      sha1=None) -> None:
         """Kernel against plain version on the same tensors (kernel 1 on
         ``n_docs`` docs and ``n_ragged`` ragged ones; kernel 2's data and
         edge shapes: keyword arguments of :meth:`scan_data` and
         :meth:`phase_kernels_scan`; kernel 3's and kernel 4's edge shapes:
-        of :meth:`phase_kernels_rerank` and :meth:`phase_kernels_score`)."""
+        of :meth:`phase_kernels_rerank` and :meth:`phase_kernels_score`;
+        kernel 9's sizes: of :meth:`phase_kernels_sha1`)."""
         torch = self.torch
         from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
 
@@ -613,6 +646,72 @@ class Smoke:
         self.phase_kernels_rerank(data, **(rerank_edges or {}))
         self.phase_kernels_compact(data)
         self.phase_kernels_score(data, **(score_edges or {}))
+        self.phase_kernels_sha1(**(sha1 or {}))
+
+    def host_buffer(self, arr: np.ndarray):
+        """A host tensor of ``arr``'s values: pinned when the phases run on
+        a card (kernel 9 reads it in place)."""
+        t = self.torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def phase_kernels_sha1(self, n_rand: int = SHA1_RAND_TOKENS,
+                           n_long: int = SHA1_LONG_TOKENS, n_docs: int = 8192) -> None:
+        """Kernel 9 against ``hashlib`` and its plain version: the padding
+        edges (0, 1, 55, 56, 63, 64, 119, 120 bytes), ``n_rand`` tokens of
+        random lengths 0-130, ``n_long`` 1,000-byte tokens (a block's range
+        past the staging window), and one 20,000-byte token (past it alone;
+        ``hashlib`` only: the plain version takes ~20 s for its 313
+        compressions); then timed on one sign-16k chunk (``n_docs`` docs x
+        200 ten-byte tokens of the bench corpus) packed by the native pack,
+        beside the pack's host time and the bound by operations and by PCIe
+        bytes."""
+        torch = self.torch
+        from datasketch_tpu_torch import native
+        from datasketch_tpu_torch.hashfunc import sha1_hash32
+
+        k9 = self.kmod("sha1")
+        rng = np.random.default_rng(9)
+        lens = np.concatenate([[0, 1, 55, 56, 63, 64, 119, 120], rng.integers(0, 131, n_rand),
+                               np.full(n_long, 1000), [20000]]).astype(np.int64)
+        raw = rng.integers(0, 256, int(lens.sum()), dtype=np.uint8)
+        offs = np.zeros(lens.size + 1, dtype=np.int32)
+        np.cumsum(lens, out=offs[1:])
+        data, offsets = self.host_buffer(raw), self.host_buffer(offs)
+        n = lens.size
+        out = torch.empty(n, dtype=torch.int32, device=self.device)
+        got = k9.sha1_hash32(data, offsets, n, out)
+        want = np.array([sha1_hash32(raw[offs[i]: offs[i + 1]].tobytes()) for i in range(n)],
+                        dtype=np.uint32)
+        check(np.array_equal(got.cpu().numpy().view(np.uint32), want),
+              "sha1: kernel 9 differs from hashlib")
+        plain = k9.sha1_hash32_plain(data, offsets, n - 1).to(self.device)
+        self.compare("sha1", "%d tokens of 0-130 and 1,000 bytes" % (n - 1), got[: n - 1],
+                     plain)
+        log("  %-13s %-34s equal to hashlib" % ("sha1", "and one of 20,000 bytes"))
+
+        corpus = make_corpus(n_docs, seed=42)
+        n_tok = n_docs * TOKENS_PER_DOC
+        data = self.host_buffer(np.zeros(16 * n_tok, dtype=np.uint8))
+        offsets = self.host_buffer(np.zeros(n_tok + 1, dtype=np.int32))
+        t0 = time.perf_counter()
+        pos, n, used, rest = native.pack_tokens(corpus, (0, 0), data.numpy(), offsets.numpy())
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        check(pos == (n_docs, 0) and n == n_tok and rest == 0, "sha1: the pack stopped at %s"
+              % (pos,))
+        out = torch.empty(n, dtype=torch.int32, device=self.device)
+        got = k9.sha1_hash32(data, offsets, n, out)
+        flat, _ = native.hash_ragged(corpus)
+        check(np.array_equal(got.cpu().numpy().view(np.uint32), flat),
+              "sha1: kernel 9 differs from the host hasher on the bench chunk")
+        rec = self.record["sha1"]
+        rec["ms"] = self.time_ms(lambda: k9.sha1_hash32(data, offsets, n, out))
+        dev_data, dev_offsets = data.to(self.device), offsets.to(self.device)
+        rec["plain_ms"] = self.time_ms(
+            lambda: k9.sha1_hash32_plain(dev_data, dev_offsets, n), iters=1)
+        log("  %-13s the pack of %d docs x %d tokens: %.2f ms on the host, %d bytes"
+            % ("sha1", n_docs, TOKENS_PER_DOC, pack_ms, used))
+        self.bound("sha1", 4 * n, int_ops=SHA1_COMPRESS_OPS * n,
+                   link_bytes=used + 4 * (n + 1))
 
     def rerank_cand(self, data: dict, c: int = 3200):
         """Kernel 3's timed candidate list over the scan table: ``c`` slots

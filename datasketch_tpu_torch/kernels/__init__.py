@@ -13,6 +13,8 @@ profiler records (:mod:`datasketch_tpu_torch.utils.profiling`):
 - :mod:`~datasketch_tpu_torch.kernels.cws` -- kernels 6 and 7, CWS (k, t)
 - :mod:`~datasketch_tpu_torch.kernels.compact` -- kernel 8, ragged compaction
   of a padded threshold result
+- :mod:`~datasketch_tpu_torch.kernels.sha1` -- kernel 9, ``sha1_hash32`` of
+  bytes tokens read in place from pinned host memory
 
 Nothing is built at import: :func:`datasketch_tpu_torch.kernels.build.library`
 compiles the sources with ``nvcc`` at the first launch.

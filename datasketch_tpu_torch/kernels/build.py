@@ -66,6 +66,8 @@ _SIGNATURES = {
     "ds_cws_sparse": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
     "ds_bbit_counts": [_P, _P, _I, _L, _I, _I, _P, _P],
     "ds_compact_rows": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "ds_sha1_hash32": [_P, _L, _P, _I, _P, _P],
+    "ds_host_device_ptr": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -8,12 +8,16 @@ uint64 array, equal to the JAX package's and the reference's at equal
 ``bulk``) sign on the card through kernel 1. The bulk classmethods turn a
 corpus into one int32[N, num_perm] tensor of uint32 bit patterns.
 
-Two token paths, as in the JAX package:
+Three token paths:
 
-- ``hashfunc=sha1_hash32`` (default): bytes tokens are hashed on the host
-  by the native SHA1 batch hasher straight into a pinned buffer, which is
-  uploaded with a ``non_blocking`` copy; the host hashes chunk i+1 while
-  the card signs chunk i.
+- ``hashfunc=sha1_hash32`` (default): the native pack copies a chunk's
+  bytes tokens back to back into pinned memory, with their offsets, and
+  kernel 9 hashes them on the card, reading them in place; the host packs
+  chunk i+1 while the card hashes and signs chunk i. (The JAX package
+  hashes SHA1 on the host.)
+- ``hashfunc=xxhash_hash32``: bytes tokens are hashed on the host by the
+  native batch hasher straight into a pinned buffer, which is uploaded
+  with a ``non_blocking`` copy.
 - ``hashfunc="device"``: integer token ids are uploaded raw (as uint8 or
   uint16 when they fit) and mixed with fmix32 inside kernel 1.
 
@@ -29,7 +33,9 @@ signatures are not value-compatible with the permutation scheme's.
 
 from __future__ import annotations
 
+import collections
 import copy
+import threading
 import warnings
 from typing import Iterable
 
@@ -39,9 +45,10 @@ import torch
 from datasketch_tpu_torch import native
 from datasketch_tpu_torch.device import as_sig_tensor, resolve_device, to_numpy_u32
 from datasketch_tpu_torch.hashfunc import device_hash, sha1_hash32, xxhash_hash32
+from datasketch_tpu_torch.kernels import sha1
 from datasketch_tpu_torch.ops import cminhash, minhash_ops, oph, text_ops
 from datasketch_tpu_torch.ops.hashing import mix32_np
-from datasketch_tpu_torch.utils.profiling import span
+from datasketch_tpu_torch.utils.profiling import count, span
 
 __all__ = ["MinHash"]
 
@@ -163,6 +170,118 @@ def _native_tokens(chunk, algo: int, dev: torch.device) -> torch.Tensor:
         return buf
     with span("dstt.upload.chunk"):
         return buf.to(dev, non_blocking=True)
+
+
+# Bounds of one pack slot: a chunk whose tokens need more is packed and
+# hashed in pieces. The byte bound keeps int32 offsets exact.
+_PACK_TOKENS = 1 << 22
+_PACK_BYTES = 1 << 30
+
+
+class _PackSlot:
+    """Buffers one pack fills and kernel 9 reads: the tokens' bytes and
+    their int32 offsets, pinned on a card's host side; ``event`` is
+    recorded after the launch that reads them."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.event = torch.cuda.Event() if dev.type == "cuda" else None
+        self.data = self.offsets = None
+        self.want = 0  # bytes the last pack into this slot could not hold
+
+    def fit(self, tokens: int, nbytes: int) -> None:
+        """Make room for ``tokens`` tokens and ``nbytes`` bytes (at least
+        16 a token, at most the bound)."""
+        pin = self.dev.type == "cuda"
+        nbytes = min(max(nbytes, self.want, 16 * tokens), _PACK_BYTES)
+        if self.offsets is None or self.offsets.numel() < tokens + 1:
+            self.offsets = torch.empty(-(-(tokens + 1) // 65536) * 65536, dtype=torch.int32,
+                                       pin_memory=pin)
+        if self.data is None or self.data.numel() < nbytes:
+            self.data = torch.empty(-(-nbytes // 65536) * 65536, dtype=torch.uint8,
+                                    pin_memory=pin)
+
+
+class _PackRing:
+    """The pack slots of one device, reused across calls, so that the
+    pinned buffers outlive the kernels that read them in place (freed to
+    the caching host allocator, they could be handed out and written while
+    a launch still reads them). A slot is taken, filled, read by one launch
+    and given back with an event recorded after it; a slot whose event has
+    passed is taken first, and a third slot is made only while two are out
+    of the ring, so one caller alternates two slots and packs chunk i+1
+    while the card reads chunk i."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self._free: collections.deque = collections.deque()
+        self._out = 0
+        self._lock = threading.Lock()
+
+    def take(self, tokens: int, nbytes: int) -> _PackSlot:
+        with self._lock:
+            done = [s for s in self._free if s.event is None or s.event.query()]
+            if done:
+                slot = done[0]
+                self._free.remove(slot)
+            elif self._free and len(self._free) + self._out >= 2:
+                slot = self._free.popleft()
+            else:
+                slot = _PackSlot(self.dev)
+            self._out += 1
+        if slot.event is not None:
+            slot.event.synchronize()
+        slot.fit(tokens, nbytes)
+        return slot
+
+    def give(self, slot: _PackSlot) -> None:
+        if slot.event is not None:
+            slot.event.record(torch.cuda.current_stream(self.dev))
+        with self._lock:
+            self._out -= 1
+            self._free.append(slot)
+
+
+_rings: dict = {}
+_rings_lock = threading.Lock()
+
+
+def _ring(dev: torch.device) -> _PackRing:
+    with _rings_lock:
+        ring = _rings.get(dev)
+        if ring is None:
+            ring = _rings[dev] = _PackRing(dev)
+        return ring
+
+
+def _card_sha1_tokens(chunk, total: int, dev: torch.device) -> torch.Tensor:
+    """``sha1_hash32`` of a chunk's ``total`` bytes tokens, flat int32 on
+    ``dev``: the native pack copies them into a slot of ``dev``'s ring
+    (pinned for a card; the ``dstt.front.sha1`` span), and kernel 9 hashes
+    them there (its plain twin on the CPU; ``dstt.kernel.sha1``). The wait
+    for a free slot, and its growth, are the rest of ``dstt.front.tokens``.
+    A chunk is one piece unless a slot's bounds cut it."""
+    ring = _ring(dev)
+    out = torch.empty(max(1, total), dtype=torch.int32, device=dev)
+    done, pos, need = 0, (0, 0), 0
+    while done < total:
+        room = min(total - done, _PACK_TOKENS)
+        with span("dstt.front.tokens"):
+            slot = ring.take(room, need)
+        try:
+            with span("dstt.front.tokens"), span("dstt.front.sha1"):
+                pos, n, used, need = native.pack_tokens(
+                    chunk, pos, slot.data.numpy(), slot.offsets.numpy()[: room + 1])
+            if need:
+                slot.want = used + need
+            if n == 0 and slot.data.numel() >= _PACK_BYTES:
+                raise ValueError("a token of more than %d bytes" % _PACK_BYTES)
+            sha1.sha1_hash32(slot.data, slot.offsets, n, out[done: done + n])
+        finally:
+            ring.give(slot)
+        count("front.card_sha1_tokens", n)
+        done += n
+    return out[:total]
 
 
 def _native_shingles(chunk, k: int, width: int, algo: int, dev: torch.device):
@@ -515,6 +634,8 @@ class MinHash:
                 else:
                     if use_ids:
                         flat = _upload(_id_tokens(chunk), dev)
+                    elif proto.hashfunc is sha1_hash32:
+                        flat = _card_sha1_tokens(chunk, int(lengths.sum()), dev)
                     elif proto.hashfunc in _NATIVE_ALGO:
                         flat = _native_tokens(chunk, _NATIVE_ALGO[proto.hashfunc], dev)
                     else:

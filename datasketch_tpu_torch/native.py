@@ -1,13 +1,15 @@
-"""Host token hashing (SHA1 low 32 / 64 bits, XXH32) and the fused HLL
-register scatter: the JAX package's C++ extension, built for the port.
+"""Host token hashing (SHA1 low 32 / 64 bits, XXH32), the fused HLL
+register scatter, and the token pack of the card's SHA1: two C++
+extensions, built for the port.
 
-The source is compiled by path (``datasketch_tpu/native/src/
-dshash_module.cpp`` + ``dshash_core.h``) with the flags of
-``datasketch_tpu/native/corpus.py`` into the port's git-ignored build
-directory and loaded with ``importlib``; ``datasketch_tpu.native`` itself
-is never imported (the JAX package's ``__init__`` imports JAX). The
-module is named by a hash of its sources, so a source change rebuilds it.
-If the build fails this raises: there is no slow path.
+The hasher is the JAX package's: its source is compiled by path
+(``datasketch_tpu/native/src/dshash_module.cpp`` + ``dshash_core.h``) with
+the flags of ``datasketch_tpu/native/corpus.py``; ``datasketch_tpu.native``
+itself is never imported (the JAX package's ``__init__`` imports JAX). The
+pack is the port's own (``csrc/token_pack.cpp``), built with the same
+flags. Both go into the port's git-ignored build directory and are loaded
+with ``importlib``, each named by a hash of its sources, so a source
+change rebuilds it. If a build fails this raises: there is no slow path.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import threading
 
 import numpy as np
 
-from datasketch_tpu_torch.kernels.build import BUILD_DIR
+from datasketch_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
 from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = [
@@ -30,6 +32,7 @@ __all__ = [
     "ALGO_SHA1_64",
     "load",
     "hash_flat",
+    "pack_tokens",
     "hash_ragged",
     "hash_shingles_padded",
     "hll_scatter",
@@ -44,49 +47,55 @@ _SRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "datasketch_tpu", "native", "src",
 )
-_SRC = os.path.join(_SRC_DIR, "dshash_module.cpp")
-_HDR = os.path.join(_SRC_DIR, "dshash_core.h")
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
+# module name -> (prefix of its built file, the source g++ compiles, headers)
+_MODULES = {
+    "_dshash": ("dshash", os.path.join(_SRC_DIR, "dshash_module.cpp"),
+                (os.path.join(_SRC_DIR, "dshash_core.h"),)),
+    "_token_pack": ("token_pack", os.path.join(CSRC_DIR, "token_pack.cpp"), ()),
+}
 
 _lock = threading.Lock()
-_mod = None
+_mods: dict = {}
 
 
-def _build() -> str:
+def _build(name: str) -> str:
+    prefix, src, headers = _MODULES[name]
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for path in (_SRC, _HDR):
+    for path in (src, *headers):
         with open(path, "rb") as fh:
             digest.update(fh.read())
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    out = os.path.join(BUILD_DIR, "dshash_%s%s" % (digest.hexdigest()[:16], suffix))
+    out = os.path.join(BUILD_DIR, "%s_%s%s" % (prefix, digest.hexdigest()[:16], suffix))
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp.%d" % (out, os.getpid())
     include = sysconfig.get_paths()["include"]
-    cmd = ["g++", *_FLAGS, "-I", include, _SRC, "-o", tmp]
+    cmd = ["g++", *_FLAGS, "-I", include, src, "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            "g++ failed to build the host SHA1 module (%d):\n%s"
-            % (proc.returncode, proc.stdout + proc.stderr)
+            "g++ failed to build the host module %s (%d):\n%s"
+            % (name, proc.returncode, proc.stdout + proc.stderr)
         )
     os.replace(tmp, out)
     return out
 
 
-def load():
-    """The ``_dshash`` extension module, built on first call (thread-safe)."""
-    global _mod
-    if _mod is not None:
-        return _mod
+def load(name: str = "_dshash"):
+    """The extension module ``name`` (``_dshash``, the hasher, or
+    ``_token_pack``), built on first call (thread-safe)."""
+    mod = _mods.get(name)
+    if mod is not None:
+        return mod
     with _lock:
-        if _mod is None:
-            spec = importlib.util.spec_from_file_location("_dshash", _build())
+        if name not in _mods:
+            spec = importlib.util.spec_from_file_location(name, _build(name))
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            _mod = mod
-    return _mod
+            _mods[name] = mod
+    return _mods[name]
 
 
 def _dtype(algo: int):
@@ -130,6 +139,30 @@ def hash_ragged(docs, out: np.ndarray = None, algo: int = ALGO_SHA1_32):
     with span("dstt.front.sha1"):  # the native hasher's call, SHA1 or XXH32
         load().hash_ragged(docs, flat, starts, algo, 0)
     return flat, lengths
+
+
+def pack_tokens(docs, start, data: np.ndarray, offsets: np.ndarray):
+    """Pack the bytes tokens of ``docs`` (lists of bytes-like tokens), from
+    ``start`` = (document, token) on, back to back into ``data``, with
+    their int32 offsets: ``offsets[0] = 0`` and ``offsets[i + 1]`` is the
+    end of token i (``csrc/token_pack.cpp``). The pack stops at the end of
+    the documents, or before a token that ``data`` or ``offsets`` has no
+    room for.
+
+    Args:
+        docs: sequence of token sequences.
+        start: (document, token) to resume from; (0, 0) for a fresh chunk.
+        data: writable uint8 buffer of fewer than 2**31 bytes (e.g. the
+            numpy view of a pinned tensor).
+        offsets: writable int32 buffer of at least 1 entry.
+
+    Returns:
+        (next (document, token) -- (len(docs), 0) when every token was
+        packed --, tokens packed, bytes packed, bytes of the tokens left).
+    """
+    doc, tok, n, used, rest = load("_token_pack").pack(
+        docs, int(start[0]), int(start[1]), data, offsets)
+    return (doc, tok), n, used, rest
 
 
 def hash_shingles_padded(texts, k: int, out: np.ndarray, algo: int = ALGO_SHA1_32):

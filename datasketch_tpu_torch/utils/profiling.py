@@ -26,7 +26,10 @@ once. Span names are ``dstt.<layer>.<step>``:
   and chunking; ``dstt.facade.scatter``: a chunk's rows put back in input
   order;
 - ``dstt.front.tokens``: a chunk's bytes tokens walked into a pinned
-  buffer, and ``dstt.front.sha1`` inside it, the native hasher's call;
+  buffer, and ``dstt.front.sha1`` inside it: for ``sha1_hash32`` the
+  native pack of the tokens' bytes and offsets (the wait for a free pack
+  slot is the rest of ``front.tokens``), for ``xxhash_hash32`` the native
+  hasher's call;
 - ``dstt.upload.queries``: a query batch sent to the device;
   ``dstt.upload.chunk``: a sketching chunk's tokens, lengths or row
   positions sent to the device; ``dstt.upload.fetch``: a batch's results
@@ -51,7 +54,8 @@ its answers alone: it is compacted on the device first);
 chunk of the second); ``ensemble.rescanned``, the queries a containment
 batch scans a second time (counted in every batch, 0 included);
 ``ensemble.matches``, the match counts of a containment batch's queries,
-summed.
+summed; ``front.card_sha1_tokens``, the bytes tokens that kernel 9 hashed
+(its plain twin on the CPU) for ``bulk_signatures``.
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@ without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,10 +30,12 @@ from datasketch_tpu_torch.kernels import (
     minhash_sign,
     rerank,
     score,
+    sha1,
     tiling,
 )
+from datasketch_tpu_torch import native
 from datasketch_tpu_torch.ops import bbit_ops, cws_ops, forest_ops, lsh_ops
-from datasketch_tpu_torch.ops.minhash_ops import perm_tensors
+from datasketch_tpu_torch.ops.minhash_ops import compute_signatures_ragged, perm_tensors
 
 pytestmark = pytest.mark.cuda
 
@@ -917,3 +921,100 @@ def test_torch_hnsw_on_the_card_matches_the_cpu(dev, metric):
     assert all(torch.equal(x.cpu(), y) for x, y in zip(a.upper_adj, b.upper_adj))
     q = np.concatenate([pts[:64], new[:64]])
     assert pair[0].query_batch(q, 10) == pair[1].query_batch(q, 10)
+
+
+def _packed_random_tokens(lens, seed):
+    """Random bytes for tokens of ``lens`` bytes, back to back, and their
+    int32 offsets, both pinned."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, int(lens.sum()), dtype=np.uint8)
+    offs = np.zeros(lens.size + 1, dtype=np.int32)
+    np.cumsum(lens, out=offs[1:])
+    return raw, offs, torch.from_numpy(raw).pin_memory(), torch.from_numpy(offs).pin_memory()
+
+
+def test_sha1_kernel_matches_hashlib_on_3m_tokens(dev):
+    rng = np.random.default_rng(11)
+    lens = rng.integers(0, 131, 3_000_000)
+    lens[:8] = [0, 1, 55, 56, 63, 64, 119, 120]  # the padding edges
+    lens[1000:1256] = 1000  # one block's range past the staging window
+    lens[5000] = 40000  # one token past it alone
+    raw, offs, data, offsets = _packed_random_tokens(lens, 12)
+    out = torch.empty(lens.size, dtype=torch.int32, device=dev)
+    got = _launched(sha1, lambda: sha1.sha1_hash32(data, offsets, lens.size, out))
+    want = np.fromiter(
+        (int.from_bytes(hashlib.sha1(raw[offs[i]: offs[i + 1]]).digest()[:4], "little")
+         for i in range(lens.size)), dtype=np.uint32, count=lens.size)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+    head = sha1.sha1_hash32_plain(data, offsets, 20000)
+    assert torch.equal(got[:20000].cpu(), head)
+
+
+@pytest.mark.parametrize("last", [5, 17, 20000])
+def test_sha1_kernel_reads_a_buffer_that_ends_inside_its_last_16_bytes(dev, last):
+    """The buffer ends with the last token, at no multiple of 16 bytes: the
+    staging window's last 16-byte load is cut at the buffer's end."""
+    lens = np.concatenate([np.random.default_rng(last).integers(0, 131, 700), [last]])
+    if lens.sum() % 16 == 0:
+        lens[0] += 1
+    raw, offs, data, offsets = _packed_random_tokens(lens, 16)
+    assert data.numel() == offs[-1] and data.numel() % 16
+    out = torch.empty(lens.size, dtype=torch.int32, device=dev)
+    got = _launched(sha1, lambda: sha1.sha1_hash32(data, offsets, lens.size, out))
+    assert torch.equal(got.cpu(), sha1.sha1_hash32_plain(data, offsets, lens.size))
+
+
+def test_sha1_kernel_refuses_pageable_and_unaligned_buffers(dev):
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    offsets = torch.tensor([0, 3, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="pinned"):
+        sha1.sha1_hash32(torch.zeros(64, dtype=torch.uint8), offsets, 2, out)
+    data = torch.zeros(64, dtype=torch.uint8).pin_memory()
+    with pytest.raises(ValueError, match="aligned"):
+        sha1.sha1_hash32(data[1:], offsets.pin_memory(), 2, out)
+
+
+def _word_corpus(n_docs, seed, long_share=0.0):
+    """Bytes documents of 0-299 tokens: 10-byte words of a 5,000-word
+    vocabulary, a ``long_share`` of them 0-130 random bytes instead."""
+    rng = np.random.default_rng(seed)
+    vocab = [bytes(w) for w in rng.integers(0, 256, (5000, 10), dtype=np.uint8)]
+    docs = []
+    for _ in range(n_docs):
+        ids = rng.integers(0, 5000, int(rng.integers(0, 300)))
+        doc = [vocab[i] for i in ids]
+        for j in np.nonzero(rng.random(len(doc)) < long_share)[0]:
+            doc[j] = bytes(rng.integers(0, 256, int(rng.integers(0, 131)), dtype=np.uint8))
+        docs.append(doc)
+    return docs
+
+
+def _host_hashed_signatures(docs, dev, num_perm=128, seed=1):
+    """Kernel 1 over the host hasher's hashes of ``docs``, in input order."""
+    flat, lengths = native.hash_ragged(docs)
+    return compute_signatures_ragged(torch.from_numpy(flat.view(np.int32)).to(dev),
+                                     torch.from_numpy(lengths).to(dev), seed, num_perm)
+
+
+def test_bulk_signatures_hash_sha1_on_the_card(dev):
+    docs = _word_corpus(20000, 13, long_share=0.05)
+    before = (sha1.launches, minhash_sign.launches)
+    got = MinHash.bulk_signatures(docs, num_perm=128, out="device", device=dev)
+    torch.cuda.synchronize()
+    k9, k1 = sha1.launches - before[0], minhash_sign.launches - before[1]
+    assert k9 == k1 >= 2  # one launch of each a chunk
+    assert torch.equal(got, _host_hashed_signatures(docs, dev))
+
+
+def test_back_to_back_sha1_calls_keep_their_pinned_buffers(dev):
+    """The stream is held ~0.5 s first, so the host packs every chunk of
+    three calls while kernel 9 has read none of them: a slot may be refilled
+    only after the launch that reads it has run."""
+    a, b = _word_corpus(20000, 14), _word_corpus(20000, 15)
+    torch.cuda._sleep(int(1e9))
+    got = [MinHash.bulk_signatures(x, num_perm=128, out="device", device=dev)
+           for x in (a, b, a)]
+    torch.cuda.synchronize()
+    want_a, want_b = _host_hashed_signatures(a, dev), _host_hashed_signatures(b, dev)
+    assert torch.equal(got[0], want_a) and torch.equal(got[1], want_b)
+    assert torch.equal(got[2], want_a)

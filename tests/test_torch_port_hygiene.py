@@ -26,7 +26,7 @@ from datasketch_tpu_torch import (
 from datasketch_tpu_torch.device import resolve_device
 from datasketch_tpu_torch.utils import device_healthcheck
 from datasketch_tpu_torch.ops import knn_graph
-from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score
+from datasketch_tpu_torch.kernels import bbit, cws, lsh_scan, minhash_sign, rerank, score, sha1
 
 torch.set_num_threads(2)
 
@@ -49,7 +49,7 @@ def test_import_loads_no_jax_and_no_cuda_context():
         "from datasketch_tpu_torch.models import weighted_minhash, b_bit_minhash, torch_bbit",
         "from datasketch_tpu_torch.models import hnsw, torch_hnsw",
         "from datasketch_tpu_torch.kernels import build, cws, lsh_scan, minhash_sign, rerank",
-        "from datasketch_tpu_torch.kernels import bbit, score",
+        "from datasketch_tpu_torch.kernels import bbit, score, sha1",
         "from datasketch_tpu_torch.utils import pipeline, profiling, health",
         "from datasketch_tpu_torch import storage, serving, aio, experimental",
         "from datasketch_tpu_torch.aio import lsh as aio_lsh, storage as aio_storage",
@@ -158,7 +158,7 @@ def _meta(shape, dtype=torch.int32):
 
 @pytest.mark.parametrize("name", ["minhash_sign", "topk_scan", "containment_topk",
                                   "containment_hits", "rerank", "score", "bbit", "cws_dense",
-                                  "cws_sparse"])
+                                  "cws_sparse", "sha1"])
 def test_wrapper_on_other_device_raises(name):
     """A tensor that is neither on the CPU nor on a card never takes the
     plain version (which would happily run on 'meta')."""
@@ -180,12 +180,14 @@ def test_wrapper_on_other_device_raises(name):
         "cws_sparse": lambda: cws.cws_sparse(
             _meta((9,), torch.float32), _meta((9,)), _meta((4,), torch.int64),
             *[_meta((50, 128), torch.float32)] * 3),
+        "sha1": lambda: sha1.sha1_hash32(torch.zeros(16, dtype=torch.uint8),
+                                         torch.zeros(3, dtype=torch.int32), 2, _meta((2,))),
     }
 
     def counters():
         return (minhash_sign.launches, lsh_scan.launches, lsh_scan.launches_sizes,
                 lsh_scan.launches_hits, rerank.launches, score.launches, bbit.launches,
-                cws.launches, cws.launches_sparse)
+                cws.launches, cws.launches_sparse, sha1.launches)
 
     before = counters()
     with pytest.raises(ValueError, match="CUDA device"):

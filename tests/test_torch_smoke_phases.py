@@ -32,11 +32,14 @@ def test_smoke_kernel_phase_on_cpu():
                         scan_edges=dict(edge_n=300, edge_q=(1, 33), one_split=(200, 33)),
                         score_edges=dict(edge_t=(1, 63, 64, 65, 130), edge_q=(1, 33),
                                          wide=(70, 128)),
-                        rerank_edges=dict(edge_c=(1, 33, 333), edge_n=500, edge_q=9))
+                        rerank_edges=dict(edge_c=(1, 33, 333), edge_n=500, edge_q=9),
+                        sha1=dict(n_rand=3000, n_long=20, n_docs=64))
     for name in ("minhash_sign", "topk_scan", "containment_scan", "containment_hits", "rerank",
                  "score_matrix", "compact_rows"):
         assert smoke.record[name]["max_abs_err"] == 0.0
         assert smoke.record[name]["bound_by"] in ("bytes", "operations")
+    assert smoke.record["sha1"]["max_abs_err"] == 0.0
+    assert smoke.record["sha1"]["bound_by"] == "PCIe bytes"
 
 
 def test_smoke_ensemble_phases_on_cpu():

@@ -26,7 +26,7 @@ SERVE = {
 # a threshold query compacts its answers on the device by either method
 COMPACT = {"dstt.kernel.compact"}
 SKETCH = {"dstt.facade.bulk_signatures", "dstt.facade.order", "dstt.front.tokens",
-          "dstt.front.sha1", "dstt.upload.chunk", "dstt.glue.sign",
+          "dstt.front.sha1", "dstt.kernel.sha1", "dstt.upload.chunk", "dstt.glue.sign",
           "dstt.kernel.minhash_sign", "dstt.facade.scatter"}
 
 
@@ -123,6 +123,7 @@ def test_sketching_records_its_spans_in_layer_order():
     assert [n for n, _, _ in spans].count("dstt.facade.bulk_signatures") == 1
     nesting = [("dstt.front.sha1", "dstt.front.tokens"),
                ("dstt.front.tokens", "dstt.facade.bulk_signatures"),
+               ("dstt.kernel.sha1", "dstt.facade.bulk_signatures"),
                ("dstt.kernel.minhash_sign", "dstt.glue.sign"),
                ("dstt.glue.sign", "dstt.facade.bulk_signatures"),
                ("dstt.facade.order", "dstt.facade.bulk_signatures"),
@@ -131,6 +132,7 @@ def test_sketching_records_its_spans_in_layer_order():
     for child, parent in nesting:
         assert _inside(spans, child, parent), (child, parent)
     assert not _inside(spans, "dstt.upload.chunk", "dstt.front.tokens")
+    assert not _inside(spans, "dstt.kernel.sha1", "dstt.front.tokens")
     assert torch.equal(got, MinHash.bulk_signatures(docs, device="cpu", out="device"))
 
 
