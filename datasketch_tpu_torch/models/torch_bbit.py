@@ -25,9 +25,10 @@ import torch
 
 from datasketch_tpu_torch.device import as_sig_tensor, resolve_device, to_numpy_u32
 from datasketch_tpu_torch.models.minhash import MinHash
-from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix, _decode_rows
+from datasketch_tpu_torch.models.torch_lsh import _as_signature_matrix, _decode_rows, _fetch
 from datasketch_tpu_torch.ops import bbit_ops
 from datasketch_tpu_torch.persist import atomic_savez, npz_path, pack_keys, unpack_keys
+from datasketch_tpu_torch.utils.profiling import span
 
 __all__ = ["TorchBBitIndex"]
 
@@ -173,10 +174,11 @@ class TorchBBitIndex:
         Returns a list per query of keys -- or (key, corrected_estimate)
         pairs when ``return_scores`` -- best match first.
         """
-        out = self._query_dispatch(minhashes, k)
-        if isinstance(out, list):
-            return out
-        return self._query_finish(tuple(t.cpu() for t in out), return_scores)
+        with span("dstt.facade.query_batch"):
+            out = self._query_dispatch(minhashes, k)
+            if isinstance(out, list):
+                return out
+            return self._query_finish(_fetch(*out), return_scores)
 
     def query_stream(self, batches, k: int, return_scores: bool = False, depth: int = 4):
         """Pipelined :meth:`query_batch` over an iterable of batches
@@ -189,7 +191,7 @@ class TorchBBitIndex:
         def _finish(out):
             if isinstance(out, list):
                 return out
-            return self._query_finish(out, return_scores)
+            return self._query_finish(tuple(t.numpy() for t in out), return_scores)
 
         return stream_batches(batches, lambda bt: self._query_dispatch(bt, k), _finish,
                               depth=depth)
@@ -201,19 +203,22 @@ class TorchBBitIndex:
             raise ValueError("k must be positive")
         if self._packed is None:
             return [[] for _ in minhashes]
-        q = _as_signature_matrix(minhashes, self.device)
+        with span("dstt.upload.queries"):
+            q = _as_signature_matrix(minhashes, self.device)
         if q.shape[0] == 0:
             return []
         if q.shape[1] < self.num_perm:
             raise ValueError("The num_perm of MinHash out of range")
-        q_packed = bbit_ops.pack_bbit(q[:, : self.num_perm], self.b)
+        with span("dstt.glue.pack"):
+            q_packed = bbit_ops.pack_bbit(q[:, : self.num_perm], self.b)
         return bbit_ops.bbit_topk_scan(self._packed, q_packed, k, self.b, self.num_perm,
                                        alive=self._alive_dev)
 
     def _query_finish(self, out, return_scores: bool) -> list:
-        """Host decode of fetched (ids, counts): the JAX class's float64
-        estimate, elementwise, so every score equals its bit for bit."""
-        ids, cnt = (t.numpy() for t in out)
+        """Host decode of fetched (ids, counts) numpy arrays: the JAX
+        class's float64 estimate, elementwise, so every score equals its
+        bit for bit."""
+        ids, cnt = out
         est = None
         if return_scores:
             est = (cnt.astype(np.float64) / self.num_perm - self._c1) / (1.0 - self._c2)

@@ -17,6 +17,7 @@ import torch
 
 from datasketch_tpu_torch.device import u32_to_i32
 from datasketch_tpu_torch.kernels import bbit, lsh_scan
+from datasketch_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "slot_size",
@@ -118,6 +119,8 @@ def bbit_topk_scan(db_packed: torch.Tensor, q_packed: torch.Tensor, k: int, b: i
     JAX package's ``lax.top_k`` carry. Each candidate is one hit key of
     its count and id (``lsh_scan.hit_keys``), and ``lsh_scan.fold_topk``
     carries them. Unlike the JAX scan, k is never cut to the tile size.
+    Each tile counts one ``bbit.tiles`` and folds under the
+    ``dstt.glue.fold_topk`` span.
 
     Args:
         db_packed: int32[N, W] packed rows; q_packed: int32[Q, W] queries.
@@ -148,10 +151,12 @@ def bbit_topk_scan(db_packed: torch.Tensor, q_packed: torch.Tensor, k: int, b: i
     for r0 in range(0, nv, tile):
         r1 = min(nv, r0 + tile)
         cnt = counts_fn(q_packed, db_packed[r0:r1], s)
-        key = lsh_scan.hit_keys(cnt, torch.arange(r0, r1, dtype=torch.int64, device=dev))
-        if alive is not None:
-            key = torch.where(alive[r0:r1], key, -1)
-        best = lsh_scan.fold_topk(best, key)
+        count("bbit.tiles")
+        with span("dstt.glue.fold_topk"):
+            key = lsh_scan.hit_keys(cnt, torch.arange(r0, r1, dtype=torch.int64, device=dev))
+            if alive is not None:
+                key = torch.where(alive[r0:r1], key, -1)
+            best = lsh_scan.fold_topk(best, key)
     pad = _pad_slots(q_packed.shape[1], b, num_perm)
     return lsh_scan.hit_ids(best), lsh_scan.hit_counts(best, pad)
 

@@ -16,7 +16,8 @@ timeline, beside the CUDA activity it enqueues; with no profiler running,
 once. Span names are ``dstt.<layer>.<step>``:
 
 - ``dstt.facade.top_k``, ``dstt.facade.query_batch``: a whole
-  ``TorchMinHashLSH`` or ``TorchMinHashLSHEnsemble`` call;
+  ``TorchMinHashLSH``, ``TorchMinHashLSHEnsemble`` or ``TorchBBitIndex``
+  call;
   ``dstt.facade.decode``: the host decode of a batch's results into keys
   (and scores); ``dstt.facade.rerun``: a containment scan's second pass,
   over the queries whose match count exceeded the answer cap, with its
@@ -40,13 +41,16 @@ once. Span names are ``dstt.<layer>.<step>``:
   ``dstt.glue.select_hits``: the row sort of a containment pass's hits,
   the top-k of a second pass's rows, and the compaction of the answers;
   ``dstt.glue.running_topk``: the tiled running top-k over kernel 4 of a
-  top-k scan past k = 128;
+  top-k scan past k = 128; ``dstt.glue.pack``: a b-bit query batch packed
+  into words; ``dstt.glue.fold_topk``: one tile of a b-bit scan, its
+  counts made hit keys and folded into the running top-k;
 - ``dstt.kernel.<module>``: a kernel wrapper of
   :mod:`datasketch_tpu_torch.kernels` (the launch's enqueue on a card, the
   plain twin on the CPU).
 
 Counters (:func:`counters`): ``upload.fetch_bytes``, the bytes of the
-result tensors a ``TorchMinHashLSH`` batch copies back;
+result tensors a ``TorchMinHashLSH``, ``TorchMinHashLSHEnsemble`` or
+``TorchBBitIndex`` batch copies back;
 ``facade.fetched_slots``, the id slots among them (a threshold batch's are
 its answers alone: it is compacted on the device first);
 ``facade.answers``, the entries the host decode returned;
@@ -55,7 +59,8 @@ chunk of the second); ``ensemble.rescanned``, the queries a containment
 batch scans a second time (counted in every batch, 0 included);
 ``ensemble.matches``, the match counts of a containment batch's queries,
 summed; ``front.card_sha1_tokens``, the bytes tokens that kernel 9 hashed
-(its plain twin on the CPU) for ``bulk_signatures``.
+(its plain twin on the CPU) for ``bulk_signatures``; ``bbit.tiles``, the
+steps of a b-bit scan (one kernel 5 launch each on a card).
 """
 
 from __future__ import annotations

@@ -375,3 +375,73 @@ def test_ensemble_spans_off_record_nothing_and_cost_under_10us_a_call(ensemble, 
                                    number=reps) / reps,
             "recording": timeit.timeit(profiling.recording, number=reps) / reps}
     assert sum(calls[k] * cost[k] for k in calls) < 10e-6, (calls, cost)
+
+
+# ------------------------------------------------------- the b-bit scan path
+
+BBIT = {"dstt.facade.query_batch", "dstt.upload.queries", "dstt.glue.pack", "dstt.kernel.bbit",
+        "dstt.glue.fold_topk", "dstt.upload.fetch", "dstt.facade.decode"}
+
+
+@pytest.fixture(scope="module")
+def bbit_index():
+    """1,000 rows at b 1; 32 queries, 24 of them near-copies of stored
+    rows."""
+    from datasketch_tpu_torch import TorchBBitIndex
+
+    ix = TorchBBitIndex(b=1, num_perm=P, device="cpu")
+    sigs = _rows(1000, 11)
+    ix.insert_batch(range(1000), sigs)
+    src = np.random.RandomState(12).randint(0, 1000, 24)
+    near = np.where(np.random.RandomState(13).rand(24, P) < 0.8, sigs[src], _rows(24, 14))
+    return ix, np.concatenate([near, _rows(8, 15)])
+
+
+@pytest.mark.parametrize("tile", [None, 300])
+def test_bbit_batch_records_its_spans_tiles_and_fetched_bytes(bbit_index, tile, monkeypatch):
+    """Each tile of the scan is one ``bbit.tiles`` and one fold span; the
+    fetch counts the [Q, k] ids and counts copied back."""
+    from datasketch_tpu_torch.ops import bbit_ops
+
+    ix, queries = bbit_index
+    if tile is not None:
+        monkeypatch.setattr(bbit_ops, "_scan_tile", lambda nq: tile)
+    steps = -(-1000 // (tile or bbit_ops._scan_tile(len(queries))))
+    copied = []
+    real = torch_lsh._host
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            copied.append(x)
+        return real(x)
+
+    monkeypatch.setattr(torch_lsh, "_host", host)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = ix.query_batch(queries, 5, return_scores=True)
+    got = profiling.counters()
+    profiling.reset_counters()
+    spans = _spans(prof)
+    names = [n for n, _, _ in spans]
+    assert set(names) == BBIT
+    assert names.count("dstt.facade.query_batch") == 1
+    assert names.count("dstt.glue.fold_topk") == names.count("dstt.kernel.bbit") == steps
+    for name in BBIT - {"dstt.facade.query_batch"}:
+        assert _inside(spans, name, "dstt.facade.query_batch"), name
+    assert not _inside(spans, "dstt.kernel.bbit", "dstt.glue.fold_topk")
+    assert got["bbit.tiles"] == steps
+    assert [(x.dtype, tuple(x.shape)) for x in copied] == [(torch.int32, (32, 5))] * 2
+    assert got["upload.fetch_bytes"] == 2 * 32 * 5 * 4
+    assert got["facade.answers"] == sum(map(len, out)) == 32 * 5
+
+
+def test_bbit_records_nothing_without_a_profiler(bbit_index, monkeypatch):
+    ix, queries = bbit_index
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: made.append(name))
+    before = profiling.counters()
+    out = ix.query_batch(queries, 5, return_scores=True)
+    assert list(ix.query_stream([queries[:16], queries[16:]], 5, return_scores=True)) == [
+        out[:16], out[16:]]
+    assert made == [] and profiling.counters() == before
